@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every CUDA kernel of the path, from fancyrec_tpu_torch/csrc,
+  2. build: every CUDA kernel of the paths, from fancyrec_tpu_torch/csrc,
      one nvcc per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the shapes of the main path, with times, the library yardstick and
-     the bound of the same work;
-  4. main path, at the full width of the recipe model (bin/instance.sh)
+     the shapes of its main path, with times, the library yardstick and
+     the bound of the same work; the brand dropout's masks, as both of
+     its kernels draw them, bit for bit against the plain Philox mask;
+  4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
      random embeddings up to 1,000,000 posts (the /v1/add path), serve it
-     int8 over HTTP and ask /v1/topk for all 51 brands. The kernels'
-     launch counts are zeroed before and read after: each must have run.
-     The served posts must equal the plain top-k, and a batch encoded on
-     the card must match the same batch encoded on the CPU.
+     int8 over HTTP and ask /v1/topk for all 51 brands. The served posts
+     must equal the plain top-k, and a batch encoded on the card must
+     match the same batch encoded on the CPU;
+  5. training, at the same width: one train step of 2 microbatches on the
+     card against the same step on the CPU; one update of 8 microbatches
+     timed and profiled (device time by kernel group); then the trainer
+     CLI for one epoch with bin/instance.sh's flags on a synthetic
+     train/val/test tree, and an index built from the checkpoint it wrote.
+The kernels' launch counts are zeroed just before each of the two paths
+(4 and 5c) and read just after: each kernel must have run on its path.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
@@ -46,6 +54,22 @@ VIDEOS_PER_BRAND, IMGS_PER_BRAND, FRAMES = 40, 40, 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 K1_TOL = 1e-4     # float32; sum order over H=1024 and 64 recurrent steps
+# training shapes: bin/instance.sh's batch of 8 and 2000 brand aspects; the
+# brand dropout's keep probability and fixed seed words for the checks
+B_TRAIN, N_ASPECTS, KEEP, K2_SEED = 8, 2000, 0.5, (0x2545F491, 0x9E3779B9)
+ACCUM, LR = 8, 1e-4        # bin/instance.sh: 8 summed microbatches, Adam lr
+# the training fixture: 8 videos of 64 frames and 8 images per brand in
+# each of train, val and test (816 posts each: 12 updates an epoch)
+TRAIN_VIDEOS_PER_BRAND, TRAIN_IMGS_PER_BRAND = 8, 8
+# card vs CPU train step: grads per tensor relative to the tensor's largest
+# (floored at 1e-4 of the model's largest), float32 through BERT, the GRU
+# and the conv banks in other sum orders.
+# Params: Adam's first step moves each by about lr * sign(grad), so a grad
+# near zero that rounds to the other sign leaves them 2 lr apart
+STEP_TOL = 1e-3
+K1B_TOL = 1e-4    # float32; sum order over 3H=3072 and 64 reverse steps
+K2_TOL = 1e-5     # float32 sums over 2000 aspects or 1024 columns; a single
+                  # dropped element moves an output by |w asp|/1000 ~ 1e-3
 K3_TOL = 1e-6     # the same float32 products; only the sort differs
 ENC_TOL = dict(atol=1e-4, rtol=1e-3)   # card vs CPU, float32, no TF32
 
@@ -167,12 +191,180 @@ def check_topk(dev):
             **roofline(nbytes, ops, INT8_OPS), "library_ms": None}
 
 
-def check_edges(dev):
-    """Both kernels against their plain versions on the card at small
-    shapes that the serving shapes do not reach: ragged tiles, bf16,
-    exact ties, k above the valid rows, several brand tiles, odd D."""
+def _gru_inputs(g, dev, t, b, h):
     import torch
-    from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda, gru_scan_ref
+    bound = 1.0 / math.sqrt(h)
+    u = lambda *s: (torch.rand(*s, generator=g, device=dev) * 2 - 1) * bound  # noqa: E731
+    w_hh = u(2, 3 * h, h)
+    b_hh = u(2, 3 * h)
+    xw = torch.randn(t, 2, b, 3 * h, generator=g, device=dev) * 0.5
+    return xw, w_hh, b_hh
+
+
+def check_gru_train(dev):
+    """K1 at the training shape (T=64, B=8, H=1024): the backward kernel
+    against its plain version and cuDNN's GRU backward, and the forward
+    kernel's time at B=8."""
+    import torch
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    xw, w_hh, b_hh = _gru_inputs(g, dev, T, B_TRAIN, H)
+    with torch.no_grad():
+        out = gru_scan_cuda(xw, w_hh, b_hh)
+        h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
+        dout = torch.randn(out.shape, generator=g, device=dev)
+        dxw_k, danp_k = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
+        dxw_p, danp_p = gru_scan_bwd_ref(xw, h_prev, dout, w_hh, b_hh)
+        torch.cuda.synchronize()
+        err = max((dxw_k - dxw_p).abs().max().item(),
+                  (danp_k - danp_p).abs().max().item())
+        scale = max(dxw_p.abs().max().item(), danp_p.abs().max().item())
+        log("gru_scan_bwd: max |kernel - plain| = %.3g over dxw and danp "
+            "(|plain| max %.3g; tolerance %g)" % (err, scale, K1B_TOL))
+        if not math.isfinite(err) or err > K1B_TOL:
+            fail("gru_scan backward kernel disagrees with its plain version")
+        ms = cuda_ms(lambda: gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh),
+                     20)
+        plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xw, h_prev, dout, w_hh,
+                                                    b_hh), 3)
+        fwd_ms = cuda_ms(lambda: gru_scan_cuda(xw, w_hh, b_hh), 20)
+    # yardstick: the backward of cuDNN's bidirectional GRU with the same
+    # recurrent weights; it also forms the input projection's and the
+    # weights' grads, which the kernel leaves to one einsum outside it
+    rnn = torch.nn.GRU(D_IN, H, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in ((0, "l0"), (1, "l0_reverse")):
+            getattr(rnn, "weight_hh_" + sfx).copy_(w_hh[d])
+            getattr(rnn, "bias_hh_" + sfx).copy_(b_hh[d])
+    x = torch.randn(T, B_TRAIN, D_IN, generator=g, device=dev,
+                    requires_grad=True)
+    y = rnn(x)[0]
+    dy = torch.randn(y.shape, generator=g, device=dev)
+    params = [x] + list(rnn.parameters())
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        y, params, dy, retain_graph=True), 20)
+    log("gru_scan_bwd: kernel %.3f ms, plain %.3f ms, cuDNN GRU backward "
+        "%.3f ms; gru_scan forward at B=%d: %.3f ms"
+        % (ms, plain_ms, library_ms, B_TRAIN, fwd_ms))
+    # gate recompute and carry contraction, each B x 3H x H a direction and
+    # step; h_{-1} = 0 makes the t=0 recompute a zero product, and the carry
+    # past t=0 is not formed
+    ops = 2 * 2 * (T - 1) * 2 * B_TRAIN * 3 * H * H
+    nbytes = 4 * (xw.numel() + h_prev.numel() + dout.numel() + w_hh.numel()
+                  + b_hh.numel() + dxw_k.numel() + danp_k.numel())
+    return {"name": "gru_scan_bwd", "route": "cuda",
+            "source": "fancyrec_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "fancyrec_tpu/ops/gru_scan.py:211",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **roofline(nbytes, ops, F32_FLOPS),
+            "library_ms": library_ms}, fwd_ms
+
+
+def check_aspect_dropout(dev):
+    """K2 at the training shape (B=8, A=2000, C=1024, keep 0.5): the masks
+    that both kernels draw equal the plain Philox mask bit for bit, and
+    outputs and grads agree with the plain versions."""
+    import torch
+    from fancyrec_tpu_torch.ops.brand_dropout import (
+        aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
+        aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref, dropout_mask,
+        keep_threshold)
+
+    b, a, c = B_TRAIN, N_ASPECTS, DIM
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    w = torch.randn(b, a, generator=g, device=dev)
+    asp = torch.randn(a, c, generator=g, device=dev)
+    gr = torch.randn(b, c, generator=g, device=dev)
+    thr, scale = keep_threshold(a, KEEP)
+    with torch.no_grad():
+        want = torch.cat([dropout_mask(K2_SEED, thr, b, a, c, lo,
+                                       min(lo + 250, a), dev)
+                          for lo in range(0, a, 250)], dim=1)
+        # isolate the mask each kernel draws: with w = 1 and one aspect row
+        # of ones, out = s * m[:, a*, :]; with w one-hot in row b* and g = 1,
+        # dasp = s * m[b*]
+        ones_w = torch.ones(b, a, device=dev)
+        row = torch.zeros(a, c, device=dev)
+        got_f = torch.empty_like(want)
+        for k in range(a):
+            row[k] = 1.0
+            got_f[:, k] = aspect_dropout_fwd_cuda(ones_w, row, K2_SEED, KEEP) > 0
+            row[k] = 0.0
+        got_b = torch.empty_like(want)
+        for k in range(b):
+            onehot = torch.zeros(b, a, device=dev)
+            onehot[k] = 1.0
+            got_b[k] = aspect_dropout_bwd_cuda(
+                onehot, asp, torch.ones(b, c, device=dev), K2_SEED, KEEP)[1] > 0
+        torch.cuda.synchronize()
+        if not (torch.equal(got_f, want) and torch.equal(got_b, want)):
+            fail("aspect dropout masks differ from the plain Philox mask: "
+                 "forward %d, backward %d of %d elements"
+                 % (int((got_f != want).sum()), int((got_b != want).sum()),
+                    want.numel()))
+        log("aspect_dropout: forward and backward kernel masks equal the "
+            "plain mask bit for bit (%d elements, kept share %.5f)"
+            % (want.numel(), want.float().mean().item()))
+        out_k = aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP)
+        out_p = aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP)
+        dw_k, dasp_k = aspect_dropout_bwd_cuda(w, asp, gr, K2_SEED, KEEP)
+        dw_p, dasp_p = aspect_dropout_bwd_ref(w, asp, gr, K2_SEED, KEEP)
+        torch.cuda.synchronize()
+        err_f = (out_k - out_p).abs().max().item()
+        err_b = max((dw_k - dw_p).abs().max().item(),
+                    (dasp_k - dasp_p).abs().max().item())
+        log("aspect_dropout: max |kernel - plain| forward %.3g, backward %.3g "
+            "(tolerance %g)" % (err_f, err_b, K2_TOL))
+        if not (err_f <= K2_TOL and err_b <= K2_TOL):
+            fail("aspect dropout kernels disagree with their plain versions")
+        fwd_ms = cuda_ms(lambda: aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP),
+                         50)
+        bwd_ms = cuda_ms(lambda: aspect_dropout_bwd_cuda(w, asp, gr, K2_SEED,
+                                                         KEEP), 50)
+        fwd_plain = cuda_ms(lambda: aspect_dropout_fwd_ref(w, asp, K2_SEED,
+                                                           KEEP), 3)
+        bwd_plain = cuda_ms(lambda: aspect_dropout_bwd_ref(w, asp, gr, K2_SEED,
+                                                           KEEP), 3)
+    log("aspect_dropout: forward kernel %.4f ms (plain %.3f ms), backward "
+        "kernel %.4f ms (plain %.3f ms)" % (fwd_ms, fwd_plain, bwd_ms,
+                                            bwd_plain))
+    # per Philox4x32-10 block: 10 rounds of 2 high and 2 low 32-bit
+    # multiplies and 4 xors, 9 key bumps of 2 adds; then 4 compares. Integer
+    # operations are counted at the card's float32 rate, which no integer
+    # rate of the card exceeds.
+    philox = (b * a * c // 4) * (10 * 8 + 9 * 2 + 4)
+    flops = 2 * b * a * c
+    common = {"route": "cuda",
+              "source": "fancyrec_tpu_torch/csrc/aspect_dropout.cu",
+              "library_ms": None}
+    return [
+        {"name": "aspect_dropout_fwd",
+         "replaces": "fancyrec_tpu/ops/brand_pallas.py:130",
+         "max_abs_err": err_f, "ms": fwd_ms, "plain_ms": fwd_plain,
+         **roofline(4 * (w.numel() + asp.numel() + out_k.numel()),
+                    philox + flops, F32_FLOPS), **common},
+        {"name": "aspect_dropout_bwd",
+         "replaces": "fancyrec_tpu/ops/brand_pallas.py:175",
+         "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": bwd_plain,
+         **roofline(4 * (w.numel() + asp.numel() + gr.numel() + dw_k.numel()
+                         + dasp_k.numel()), philox + 2 * flops, F32_FLOPS),
+         **common},
+    ]
+
+
+def check_edges(dev):
+    """Every kernel against its plain version on the card at small shapes
+    that the main paths do not reach: ragged tiles, bf16, exact ties, k
+    above the valid rows, several brand tiles, odd D, odd aspect counts
+    and column counts."""
+    import torch
+    from fancyrec_tpu_torch.ops.brand_dropout import (
+        aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
+        aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref)
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda, gru_scan_ref)
     from fancyrec_tpu_torch.ops.similarity import (
         quantize_rows_int8, topk_int8_cuda, topk_int8_ref)
 
@@ -190,6 +382,43 @@ def check_edges(dev):
         if not err <= tol:
             fail("gru_scan T=%d B=%d H=%d %s: max err %.3g > %g"
                  % (t, b, h, dt, err, tol))
+    # the backward: ragged row groups and unit tiles, bf16, one step
+    for t, b, h, dt, tol in ((5, 3, 40, torch.float32, K1B_TOL),
+                             (4, 11, 37, torch.float32, K1B_TOL),
+                             (3, 130, 1000, torch.float32, K1B_TOL),
+                             (1, 2, 16, torch.float32, K1B_TOL),
+                             (4, 7, 64, torch.bfloat16, 5e-2)):
+        xw, w, bias = _gru_inputs(g, dev, t, b, h)
+        xw = xw.to(dt)
+        out = gru_scan_cuda(xw, w, bias)
+        h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
+        dout = torch.randn(out.shape, generator=g, device=dev).to(dt)
+        got = gru_scan_bwd_cuda(xw, h_prev, dout, w, bias)
+        want = gru_scan_bwd_ref(xw, h_prev, dout, w, bias)
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, want))
+        if not err <= tol:
+            fail("gru_scan_bwd T=%d B=%d H=%d %s: max err %.3g > %g"
+                 % (t, b, h, dt, err, tol))
+    # aspect dropout: aspects not a multiple of the tile, columns not a
+    # multiple of 4 and past one 1024-column chunk, keep = 1 against the
+    # deterministic mean
+    for b, a, c, keep in ((3, 37, 130, 0.7), (5, 50, 2050, 0.5),
+                          (2, 16, 64, 1.0), (9, 33, 1027, 0.3)):
+        w = torch.randn(b, a, generator=g, device=dev)
+        asp = torch.randn(a, c, generator=g, device=dev)
+        gr = torch.randn(b, c, generator=g, device=dev)
+        seed = (b * 7919, c * 104729)
+        pairs = [(aspect_dropout_fwd_cuda(w, asp, seed, keep),
+                  aspect_dropout_fwd_ref(w, asp, seed, keep))]
+        pairs += list(zip(aspect_dropout_bwd_cuda(w, asp, gr, seed, keep),
+                          aspect_dropout_bwd_ref(w, asp, gr, seed, keep)))
+        if keep == 1.0:
+            pairs.append((pairs[0][0], (w @ asp) / a))
+        err = max((x - y).abs().max().item() for x, y in pairs)
+        if not err <= K2_TOL:
+            fail("aspect_dropout B=%d A=%d C=%d keep=%g: max err %.3g > %g"
+                 % (b, a, c, keep, err, K2_TOL))
     for b, n, d, k, n_valid, dups in ((3, 1000, 132, 10, None, False),
                                       (4, 300, 128, 8, 5, False),
                                       (5, 2000, 256, 12, None, True),
@@ -208,18 +437,39 @@ def check_edges(dev):
             fail("topk_int8 B=%d N=%d D=%d k=%d n_valid=%s differs from "
                  "the plain version" % (b, n, d, k, n_valid))
     torch.cuda.synchronize()
-    log("edge shapes: both kernels agree with their plain versions")
+    log("edge shapes: every kernel agrees with its plain version")
+
+
+def _wrappers():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from fancyrec_tpu_torch.ops.brand_dropout import (
+        aspect_dropout_bwd_cuda, aspect_dropout_fwd_cuda)
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_cuda)
+    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
+    return {"gru_scan": gru_scan_cuda, "topk_int8": topk_int8_cuda,
+            "gru_scan_bwd": gru_scan_bwd_cuda,
+            "aspect_dropout_fwd": aspect_dropout_fwd_cuda,
+            "aspect_dropout_bwd": aspect_dropout_bwd_cuda}
+
+
+def zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def uncounted(fn):
     """Run a measurement without adding its launches to the main path's."""
-    from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda
-    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
-    saved = gru_scan_cuda.launches, topk_int8_cuda.launches
+    saved = read_counts()
     try:
         return fn()
     finally:
-        gru_scan_cuda.launches, topk_int8_cuda.launches = saved
+        for name, w in _wrappers().items():
+            w.launches = saved[name]
 
 
 def roofline(nbytes, ops, peak):
@@ -406,6 +656,221 @@ def main_path(work, dev):
     log("served posts equal the plain top-k for all %d brands" % N_BRANDS)
 
 
+def instance_args(root, postfix, epochs):
+    """bin/instance.sh's trainer flags, for `epochs` epochs on `root`."""
+    return ["insCartrain", "insCarval", "insCartest", "--rootpath", root,
+            "--brand_num", str(N_BRANDS), "--overwrite", "1",
+            "--text_norm", "--visual_norm",
+            "--video_feature", "resnet152_dim_%d" % D_IN,
+            "--img_feature", "imgfeat_dim_%d" % D_IN,
+            "--n_caption", "1", "--concate", "full", "--loss_fun", "cl",
+            "--num_epochs", str(epochs), "--text_net", "transformers",
+            "--batch_size", str(B_TRAIN), "--accumulation_step",
+            str(ACCUM), "--metric", "auc", "--learning_rate", str(LR),
+            "--common_embedding_size", str(DIM),
+            "--text_mapping_size", str(DIM),
+            "--visual_mapping_size", str(DIM), "--margin", "0.2",
+            "--fusion_style", "ph", "--max_violation", "--postfix", postfix,
+            "--measure", "cosine", "--cost_style", "mean",
+            "--brand_aspect", str(N_ASPECTS)]
+
+
+def train_step_card_vs_cpu(root, dev):
+    """Phase 5a: one train_step at recipe width, A=2 microbatches of 8, the
+    tower dropouts at 0 and the brand dropout at 0.5, from the same weights
+    and seed words on the card and on the CPU: grads, updated params and
+    BatchNorm statistics must agree. The counter-based brand mask makes
+    both draws the same."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.losses import init_queue_state
+    from fancyrec_tpu_torch.models import FancyRec, init_fancyrec
+    from fancyrec_tpu_torch.train.state import TrainState, make_optimizer
+    from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
+    from fancyrec_tpu_torch.train.trainer import build_datasets
+
+    cfg = config_from_args(build_train_parser().parse_args(
+        instance_args(root, "step_check", 1)
+        + ["--dropout", "0", "--bert_dropout", "0"]))
+    train_set = build_datasets(cfg)["train"]
+    cfg.finalize()
+    rng = np.random.RandomState(SEED)
+    pick = rng.permutation(len(train_set))[:2 * B_TRAIN]
+    superbatch = stack_microbatches([
+        train_set.gather_batch(pick[i * B_TRAIN:(i + 1) * B_TRAIN])
+        for i in range(2)])
+    out = []
+    for where in (dev, torch.device("cpu")):
+        model = init_fancyrec(FancyRec(cfg), torch.Generator().manual_seed(
+            SEED)).to(where).seed_dropout(SEED)
+        opt = make_optimizer(cfg, model.parameters())
+        state = TrainState(queue=init_queue_state(cfg.queue_size, DIM,
+                                                  device=where))
+        sb = {k: torch.from_numpy(v).to(where) for k, v in superbatch.items()}
+        t0 = time.time()
+        state, metrics = train_step(model, opt, cfg, state, sb)
+        loss = float(metrics["loss"])
+        log("train step on %s: %.2f s, loss %.6f, grad norm %.6f"
+            % (where, time.time() - t0, loss, float(metrics["grad_norm"])))
+        out.append((
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: v.detach().cpu() for n, v in model.state_dict().items()},
+            loss))
+        del model, opt, state, sb
+    (g_card, s_card, l_card), (g_cpu, s_cpu, l_cpu) = out
+    if not (math.isfinite(l_card) and abs(l_card - l_cpu) <= STEP_TOL
+            * max(1.0, abs(l_cpu))):
+        fail("train step loss on the card %r vs the CPU %r" % (l_card, l_cpu))
+    # per tensor, relative to its largest grad; a grad that is zero in exact
+    # arithmetic (a BERT key bias: softmax ignores a per-query constant)
+    # holds rounding noise, so the scale is floored at 1e-4 of the largest
+    # grad of the model, float32's rounding over sums of ~1e4 terms
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    rel = {n: (g_card[n] - g_cpu[n]).abs().max().item()
+           / max(g_cpu[n].abs().max().item(), 1e-4 * top) for n in g_cpu}
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    g_err = rel[worst[0]]
+    s_err = max((s_card[n] - s_cpu[n]).abs().max().item() for n in s_cpu)
+    flips = sum(int(((s_card[n] - s_cpu[n]).abs() > LR / 2).sum())
+                for n in s_cpu)
+    log("train step card vs CPU: loss %.3g apart; grads max |diff| / "
+        "max |grad| per tensor %.3g (tolerance %g; largest grad %.3g; worst "
+        "%s); "
+        "params and BN statistics max |diff| %.3g (tolerance %g), %d of %d "
+        "values moved apart by more than lr/2"
+        % (abs(l_card - l_cpu), g_err, STEP_TOL, top,
+           ", ".join("%s %.3g" % (n, rel[n]) for n in worst), s_err,
+           2 * LR * 1.001, flips, sum(v.numel() for v in s_cpu.values())))
+    if not (g_err <= STEP_TOL and s_err <= 2 * LR * 1.001):
+        fail("the card's train step disagrees with the CPU's")
+    return {"loss_diff": abs(l_card - l_cpu), "grad_rel_err": g_err,
+            "param_err": s_err, "param_flips": flips}
+
+
+def _kernel_group(name):
+    low = name.lower()
+    if "gru_step_kernel" in low:
+        return "K1 gru_scan forward"
+    if "gru_bwd_" in low:
+        return "K1 gru_scan backward"
+    if "adm_" in low:
+        return "K2 aspect_dropout"
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "convolutions (cuDNN)"
+    if any(s in low for s in ("gemm", "gemv", "xmma")):
+        return "matrix products (cuBLAS)"
+    return "other (elementwise, reductions, copies, optimizer)"
+
+
+def profile_update(root, dev):
+    """Phase 5b: where one update's device time goes at bin/instance.sh's
+    shapes (8 microbatches of 8, every dropout on): the step's time on the
+    host clock, then the same step under torch.profiler, its kernels'
+    device time summed by kernel and by group, and the device's busy share
+    (kernel time over the unprofiled step time)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.train.state import init_state
+    from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
+    from fancyrec_tpu_torch.train.trainer import build_datasets
+
+    cfg = config_from_args(build_train_parser().parse_args(
+        instance_args(root, "profile", 1)))
+    train_set = build_datasets(cfg)["train"]
+    cfg.finalize()
+    pick = np.random.RandomState(SEED + 1).permutation(len(train_set))
+    superbatch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in stack_microbatches([
+                      train_set.gather_batch(pick[i * B_TRAIN:
+                                                  (i + 1) * B_TRAIN])
+                      for i in range(ACCUM)]).items()}
+    model, opt, state = init_state(cfg, dev, seed=SEED)
+    step_ms = []
+    for _ in range(3):                        # the first warms up
+        t0 = time.perf_counter()
+        state, metrics = train_step(model, opt, cfg, state, superbatch)
+        float(metrics["loss"])                # waits for the card
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = train_step(model, opt, cfg, state, superbatch)
+        float(metrics["loss"])
+    # device-side events, less the ranges of record_function annotations
+    # (Optimizer.step), whose kernels are counted on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    steady = min(step_ms[1:])
+    log("one update (%d microbatches of %d): %.1f ms on the host clock "
+        "(runs %s); %d kernel launches, device kernel time %.1f ms, busy "
+        "share %.3f" % (ACCUM, B_TRAIN, steady,
+                        ", ".join("%.1f" % t for t in step_ms),
+                        sum(e.count for e in kernels), total,
+                        total / steady if total else float("nan")))
+    if not kernels:
+        log("torch.profiler recorded no device time: breakdown not measured")
+        return
+    groups = {}
+    for e in kernels:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log("  %-52s %8.2f ms  %5.1f%%" % (g, ms, 100 * ms / total))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log("  kernel %-64.64s x%-5d %8.2f ms" % (
+            e.key, e.count, e.self_device_time_total / 1e3))
+    del model, opt, state, superbatch
+
+
+def train_path(root, dev):
+    """Phase 5c: the trainer CLI on the card for one epoch with
+    bin/instance.sh's flags. The kernels' counts are zeroed just before it
+    and read just after (the trainer's last act is to read its losses,
+    which waits for the card); then the serving path builds an index from
+    the checkpoint it wrote."""
+    from fancyrec_tpu_torch.serving import index as sindex
+    from fancyrec_tpu_torch.train import trainer
+
+    zero_counts()
+    t0 = time.time()
+    best = trainer.main(instance_args(root, "chip_smoke", 1)
+                        + ["--device", str(dev)])
+    wall = time.time() - t0
+    counts = read_counts()
+    logdir = os.path.join(root, "model", "chip_smoke")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rec = [json.loads(line) for line in f][-1]
+    micro = rec["updates"] * ACCUM
+    log("trainer CLI, 1 epoch at recipe width: %.1f s wall; %d updates of "
+        "%d x %d posts in %.2f s: %.1f ms per update, %.1f posts/s; loss %.4f;"
+        " validation score %.4f (AUC %.4f); device peak %.2f GB"
+        % (wall, rec["updates"], ACCUM, B_TRAIN, rec["train_seconds"],
+           1e3 * rec["train_seconds"] / max(rec["updates"], 1),
+           rec["posts_per_s"], rec["loss"], best, rec["auc"],
+           rec.get("device_peak_bytes", 0) / 1e9))
+    log("training path launches: %s" % counts)
+    if not (rec["updates"] >= 1 and math.isfinite(rec["loss"])):
+        fail("the trainer ran no update or its loss is not finite: %s" % rec)
+    for name in ("gru_scan_bwd", "aspect_dropout_fwd", "aspect_dropout_bwd"):
+        if counts[name] != micro:
+            fail("%s launched %d times for %d microbatches"
+                 % (name, counts[name], micro))
+    if counts["gru_scan"] < micro:
+        fail("gru_scan launched %d times for %d microbatches"
+             % (counts["gru_scan"], micro))
+    ckpt = os.path.join(logdir, "model_best.pth.tar")
+    idx = os.path.join(root, "trained_index")
+    n = uncounted(lambda: sindex.build_index(
+        ckpt, root, "insCartest", idx, batch_size=B_ENC, device=str(dev)))
+    log("the serving path built a %d-post index from the trained checkpoint"
+        % n)
+    return counts, rec
+
+
 def main():
     try:
         import torch
@@ -418,8 +883,7 @@ def main():
         import fancyrec_tpu_torch
         from fancyrec_tpu_torch.device import resolve_device
         from fancyrec_tpu_torch.ops import _build
-        from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda
-        from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
+        from fancyrec_tpu_torch.utils.fixture import make_fixture
     except ImportError as e:
         fail("the fancyrec_tpu_torch package is not beside this script (%s)"
              % e)
@@ -437,7 +901,7 @@ def main():
 
     # 2. build
     t0 = time.time()
-    reports = _build.build(["gru_scan", "topk_int8"])
+    reports = _build.build(["gru_scan", "topk_int8", "aspect_dropout"])
     log("kernels built in %.1f s" % (time.time() - t0))
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -445,26 +909,45 @@ def main():
                 log("%s ptxas: %s" % (name, line.strip()))
 
     # 3. kernels vs their plain versions
-    kernels = [check_gru(dev), check_topk(dev)]
+    gru_bwd, fwd_b8_ms = check_gru_train(dev)
+    kernels = ([check_gru(dev), check_topk(dev), gru_bwd]
+               + check_aspect_dropout(dev))
     check_edges(dev)
     torch.cuda.empty_cache()
 
-    # 4. the main path, counts zeroed just before and read just after
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        gru_scan_cuda.launches = 0
-        topk_int8_cuda.launches = 0
+        # 4. the serving path, counts zeroed just before and read just after
+        zero_counts()
         main_path(work, dev)
-        launches = {"gru_scan": gru_scan_cuda.launches,
-                    "topk_int8": topk_int8_cuda.launches}
+        serving = read_counts()
+        log("serving path launches: %s" % serving)
+        torch.cuda.empty_cache()
+        # 5. training: the card's step against the CPU's, then the trainer
+        t0 = time.time()
+        root = os.path.join(work, "insCarTrain")
+        make_fixture(root, brand_num=N_BRANDS,
+                     videos_per_brand=TRAIN_VIDEOS_PER_BRAND,
+                     imgs_per_brand=TRAIN_IMGS_PER_BRAND, feat_dim=D_IN,
+                     frames_per_video=FRAMES, seed=SEED)
+        log("training fixture (train, val and test collections): %.1f s"
+            % (time.time() - t0))
+        train_step_card_vs_cpu(root, dev)
+        torch.cuda.empty_cache()
+        profile_update(root, dev)
+        torch.cuda.empty_cache()
+        training, _ = train_path(root, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log("gru_scan forward at the training batch (B=%d): %.3f ms; launches on "
+        "the training path: %d" % (B_TRAIN, fwd_b8_ms, training["gru_scan"]))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        path = serving if k["name"] in ("gru_scan", "topk_int8") else training
+        k["launches"] = path[k["name"]]
         if k["launches"] < 1:
-            fail("%s was not launched on the main path" % k["name"])
+            fail("%s was not launched on its main path" % k["name"])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -9,5 +9,7 @@ caller asks for the CPU (`device="cpu"`, `--device cpu`); on CPU tensors the
 kernel wrappers run their plain PyTorch versions.
 
 Ported so far: the serving path -- index build (post encoding through the
-full FancyRec towers), the int8 top-k, and the HTTP service.
+full FancyRec towers), the int8 top-k, and the HTTP service -- and the
+training path: the trainer CLI (`fancyrec_tpu_torch.train.trainer`), its
+losses, train step, ranking metrics and checkpoints.
 """

@@ -3,11 +3,13 @@
 The same dataclass and the same JSON form as `fancyrec_tpu.config`, so a
 config written by either package loads in the other. The fields that
 only steer JAX (meshes, pipelining, the XLA compile cache, the dropout
-PRNG) are kept for that interchange and are not read by the port.
+PRNG) are kept for that interchange and are not read by the port; the
+training CLI refuses them at any value but their default.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -315,3 +317,128 @@ class Config:
     def load(cls, path: str) -> "Config":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    """The JAX package's training flags (the reference's names), plus
+    --device."""
+    p = argparse.ArgumentParser()
+    d = Config()
+    p.add_argument("--rootpath", type=str, default=d.rootpath)
+    p.add_argument("trainCollection", type=str)
+    p.add_argument("valCollection", type=str)
+    p.add_argument("testCollection", type=str)
+    p.add_argument("--n_caption", type=int, default=d.n_caption)
+    p.add_argument("--overwrite", type=int, default=0, choices=[0, 1])
+    p.add_argument("--model", type=str, default=d.model)
+    p.add_argument("--measure", type=str, default=d.measure)
+    p.add_argument("--dropout", type=float, default=d.dropout)
+    p.add_argument("--concate", type=str, default=d.concate)
+    p.add_argument("--level_vis", type=str, default=d.level_vis)
+    p.add_argument("--level_txt", type=str, default=d.level_txt)
+    p.add_argument("--brand_num", type=int, default=d.brand_num)
+    p.add_argument("--brand_aspect", type=int, default=d.brand_aspect)
+    p.add_argument("--vocab", type=str, default=d.vocab)
+    p.add_argument("--word_dim", type=int, default=d.word_dim)
+    p.add_argument("--text_rnn_size", type=int, default=d.text_rnn_size)
+    p.add_argument("--text_kernel_num", type=int, default=d.text_kernel_num)
+    p.add_argument("--text_kernel_sizes", type=str, default=d.text_kernel_sizes)
+    p.add_argument("--text_norm", action="store_true")
+    p.add_argument("--text_transformers_hidden_size", type=int,
+                   default=d.text_transformers_hidden_size)
+    p.add_argument("--text_net", type=str, default=d.text_net)
+    p.add_argument("--video_feature", type=str, default=d.video_feature)
+    p.add_argument("--img_feature", type=str, default=d.img_feature)
+    p.add_argument("--visual_rnn_size", type=int, default=d.visual_rnn_size)
+    p.add_argument("--visual_kernel_num", type=int, default=d.visual_kernel_num)
+    p.add_argument("--visual_kernel_sizes", type=str,
+                   default=d.visual_kernel_sizes)
+    p.add_argument("--visual_norm", action="store_true")
+    p.add_argument("--text_mapping_size", type=int, default=d.text_mapping_size)
+    p.add_argument("--visual_mapping_size", type=int,
+                   default=d.visual_mapping_size)
+    p.add_argument("--common_embedding_size", type=int,
+                   default=d.common_embedding_size)
+    p.add_argument("--single_modal_visual", action="store_true")
+    p.add_argument("--single_modal_text", action="store_true")
+    p.add_argument("--fusion_style", type=str, default=d.fusion_style)
+    p.add_argument("--prj_head_output", action="store_true")
+    p.add_argument("--loss_fun", type=str, default=d.loss_fun)
+    p.add_argument("--margin", type=float, default=d.margin)
+    p.add_argument("--direction", type=str, default=d.direction)
+    p.add_argument("--max_violation", action="store_true")
+    p.add_argument("--cost_style", type=str, default=d.cost_style)
+    p.add_argument("--no_queue", action="store_true")
+    p.add_argument("--queue_size", type=int, default=d.queue_size)
+    p.add_argument("--no_intra", action="store_true")
+    p.add_argument("--optimizer", type=str, default=d.optimizer)
+    p.add_argument("--learning_rate", type=float, default=d.learning_rate)
+    p.add_argument("--lr_decay_rate", type=float, default=d.lr_decay_rate)
+    p.add_argument("--grad_clip", type=float, default=d.grad_clip)
+    p.add_argument("--resume", type=str, default="", metavar="PATH")
+    p.add_argument("--metric", type=str, default=d.metric)
+    p.add_argument("--num_epochs", type=int, default=d.num_epochs)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--accumulation_step", type=int,
+                   default=d.accumulation_step)
+    p.add_argument("--workers", type=int, default=d.workers)
+    p.add_argument("--postfix", type=str, default=d.postfix)
+    p.add_argument("--log_step", type=int, default=d.log_step)
+    p.add_argument("--cv_name", type=str, default=d.cv_name)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--dtype", type=str, default=d.dtype)
+    p.add_argument("--rng_impl", type=str, default=d.rng_impl,
+                   choices=["threefry", "rbg"])
+    p.add_argument("--bert_remat", type=int, default=int(d.bert_remat),
+                   choices=[0, 1])
+    p.add_argument("--token_buckets", type=str, default=d.token_buckets)
+    p.add_argument("--frame_buckets", type=str, default=d.frame_buckets)
+    p.add_argument("--length_grouped", type=int, default=int(d.length_grouped))
+    p.add_argument("--compilation_cache_dir", type=str,
+                   default=d.compilation_cache_dir)
+    p.add_argument("--transfer_dtype", type=str, default=d.transfer_dtype)
+    p.add_argument("--mesh_shape", type=str, default=d.mesh_shape)
+    p.add_argument("--max_frames", type=int, default=d.max_frames)
+    p.add_argument("--max_tokens", type=int, default=d.max_tokens)
+    p.add_argument("--max_words", type=int, default=d.max_words)
+    p.add_argument("--bert_vocab", type=str, default=d.bert_vocab)
+    p.add_argument("--w2v_feature", type=str, default=d.w2v_feature)
+    p.add_argument("--bert_weights", type=str, default=d.bert_weights)
+    p.add_argument("--validate_split", type=str, default=d.validate_split)
+    p.add_argument("--auto_resume", action="store_true")
+    p.add_argument("--keep_checkpoints", type=int, default=d.keep_checkpoints)
+    p.add_argument("--seq_shard", action="store_true")
+    p.add_argument("--pp_stages", type=int, default=d.pp_stages)
+    p.add_argument("--bert_num_layers", type=int, default=d.bert_num_layers)
+    p.add_argument("--bert_dropout", type=float, default=d.bert_dropout)
+    p.add_argument("--profile_dir", type=str, default=d.profile_dir)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+    return p
+
+
+# flags the port does not implement, with the value that means "off": the
+# JAX package's meshes, pipelining, sequence sharding, dropout PRNG choice,
+# XLA compile cache, bf16 host staging and profiler, BERT rematerialization
+# (torch's checkpointing would redraw the dropout masks from the explicit
+# generators on recompute) and word2vec init
+_NOT_PORTED = {"mesh_shape": "", "seq_shard": False, "rng_impl": "threefry",
+               "compilation_cache_dir": "", "transfer_dtype": "",
+               "profile_dir": "", "bert_remat": 0, "w2v_feature": ""}
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The parsed flags -> Config. Raises NotImplementedError for a flag
+    that only steers the JAX package when it is set to anything but off."""
+    vals = vars(args)
+    for flag, off in _NOT_PORTED.items():
+        if vals.get(flag, off) != off:
+            raise NotImplementedError(
+                "--%s is not implemented by the PyTorch port (got %r)"
+                % (flag, vals[flag]))
+    if vals.get("pp_stages", 0) > 1:
+        raise NotImplementedError(
+            "--pp_stages is not implemented by the PyTorch port (got %r)"
+            % vals["pp_stages"])
+    known = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vals.items() if k in known})

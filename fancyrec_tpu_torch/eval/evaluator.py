@@ -1,6 +1,6 @@
-"""Encode a collection's posts and the brands with the port's model.
+"""Encode a collection's posts and the brands, and rank posts for brands.
 
-Port of `encode_data` and `brand_embeddings` from
+Port of `encode_data`, `brand_embeddings` and `test_post_ranking` from
 fancyrec_tpu/eval/evaluator.py, on one device.
 """
 
@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from fancyrec_tpu_torch.data.loader import bucket_batch, prefetch_to_device
+from fancyrec_tpu_torch.eval.metrics import (
+    RankingMetrics, cosine_sim_matrix, ranking_metrics)
 from fancyrec_tpu_torch.models.encoders import TextBatch, VisualBatch
 
 # model-input keys of a batch dict; the rest (idxs, n_valid) is host-side
@@ -62,3 +64,14 @@ def brand_embeddings(model, brand_num: int, device: torch.device
     """All-brand embeddings: aspect mixtures meaned over the aspect axis."""
     ids = torch.arange(brand_num, device=device)
     return model.embed_brand(ids)
+
+
+@torch.no_grad()
+def test_post_ranking(model, brand_num: int, post_embs, brands,
+                      device: torch.device) -> RankingMetrics:
+    """The brands x posts cosine matrix on `device` and its ranking
+    metrics (the reference evaluator's test_post_ranking)."""
+    aspects = brand_embeddings(model, brand_num, device)
+    scores = cosine_sim_matrix(aspects,
+                               torch.as_tensor(post_embs, device=device))
+    return ranking_metrics(scores, brands, brand_num)

@@ -3,8 +3,9 @@
 Port of fancyrec_tpu/models/bert.py: the reference text tower is a
 HuggingFace BertModel truncated to 3 layers. erf-GELU, post-LayerNorm
 (eps 1e-12), an additive attention mask of float32-min on padded keys,
-scores scaled by 1/sqrt(head_dim), softmax in float32. The JAX package has
-no kernel here, so neither does the port. Submodule names follow the JAX
+scores scaled by 1/sqrt(head_dim), softmax in float32; in training mode,
+dropout on the embeddings, the attention probabilities and both residual
+branches. The JAX package has no kernel here, so neither does the port. Submodule names follow the JAX
 parameter tree (layer_0.attention.query, ..., output_ln).
 """
 
@@ -17,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fancyrec_tpu_torch.models.layers import Dropout
+
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
@@ -27,6 +30,8 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
 
 
@@ -38,6 +43,7 @@ class BertSelfAttention(nn.Module):
         self.query = nn.Linear(d, d)
         self.key = nn.Linear(d, d)
         self.value = nn.Linear(d, d)
+        self.probs_drop = Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, hidden, attn_bias):
         b, t, d = hidden.shape
@@ -48,7 +54,7 @@ class BertSelfAttention(nn.Module):
         v = self.value(hidden).view(b, t, h, dh)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
         scores = scores / math.sqrt(dh) + attn_bias
-        probs = torch.softmax(scores, dim=-1)
+        probs = self.probs_drop(torch.softmax(scores, dim=-1))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
         return ctx.reshape(b, t, d)
 
@@ -63,12 +69,15 @@ class BertLayer(nn.Module):
         self.intermediate = nn.Linear(d, cfg.intermediate_size)
         self.output = nn.Linear(cfg.intermediate_size, d)
         self.output_ln = nn.LayerNorm(d, eps=eps)
+        self.attention_drop = Dropout(cfg.hidden_dropout_prob)
+        self.output_drop = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, hidden, attn_bias):
         ctx = self.attention(hidden, attn_bias)
-        hidden = self.attention_ln(hidden + self.attention_output(ctx))
+        hidden = self.attention_ln(
+            hidden + self.attention_drop(self.attention_output(ctx)))
         inter = F.gelu(self.intermediate(hidden), approximate="none")
-        return self.output_ln(hidden + self.output(inter))
+        return self.output_ln(hidden + self.output_drop(self.output(inter)))
 
 
 class BertEncoder(nn.Module):
@@ -84,6 +93,7 @@ class BertEncoder(nn.Module):
         self.token_type_embeddings = nn.Parameter(
             torch.empty(cfg.type_vocab_size, d))
         self.embeddings_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.embeddings_drop = Dropout(cfg.hidden_dropout_prob)
         for i in range(cfg.num_hidden_layers):
             setattr(self, "layer_%d" % i, BertLayer(cfg))
 
@@ -93,7 +103,7 @@ class BertEncoder(nn.Module):
         hidden = (self.word_embeddings[input_ids]
                   + self.position_embeddings[pos][None]
                   + self.token_type_embeddings[token_type_ids])
-        hidden = self.embeddings_ln(hidden)
+        hidden = self.embeddings_drop(self.embeddings_ln(hidden))
         mask = attention_mask.float()
         attn_bias = ((1.0 - mask)[:, None, None, :]
                      * torch.finfo(torch.float32).min)

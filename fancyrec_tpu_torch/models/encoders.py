@@ -1,8 +1,10 @@
-"""Dual-branch multi-level encoders (visual / text), evaluation mode.
+"""Dual-branch multi-level encoders (visual / text).
 
 Port of fancyrec_tpu/models/encoders.py without its mesh branches
-(sequence sharding, the pipelined BERT stack). Dropout is identity in
-evaluation, which is all the serving path runs.
+(sequence sharding, the pipelined BERT stack). Training mode
+(`module.train()`) turns on the JAX package's dropouts: after the pooled
+GRU output and the conv bank of each tower, in the mapping MFC, and in
+BERT.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from torch import nn
 from fancyrec_tpu_torch.models.bert import BertConfig, BertEncoder
 from fancyrec_tpu_torch.models.gru import BiGRU
 from fancyrec_tpu_torch.models.layers import (
-    MFC, AttentionPool, ConvBank, batch_max_len, l2norm, masked_mean)
+    MFC, AttentionPool, ConvBank, Dropout, batch_max_len, l2norm,
+    masked_mean)
 
 
 class VisualBatch(NamedTuple):
@@ -45,13 +48,16 @@ class VisualEncoder(nn.Module):
     def __init__(self, rnn_size: int, feat_dim: int, kernel_num: int,
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
-                 level: str = "1+2+3", norm: bool = False):
+                 level: str = "1+2+3", norm: bool = False,
+                 dropout: float = 0.2):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.atten = AttentionPool(feat_dim, feat_dim // 4, heads=3)
         self.rnn = BiGRU(feat_dim, rnn_size, packed=False)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.visual_mapping = MFC(mapping_in, mapping_out)
+        self.visual_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.gru_drop = Dropout(dropout)
+        self.con_drop = Dropout(dropout)
 
     def forward(self, v: VisualBatch):
         mask = v.mask.float()
@@ -59,8 +65,8 @@ class VisualEncoder(nn.Module):
         org_out = v.mean_origin
         attn_out = self.atten(v.frames, mask)
         gru_seq = self.rnn(v.frames, batch_len=bl)
-        gru_out = masked_mean(gru_seq, mask)
-        con_out = self.convs(gru_seq * mask[..., None], bl)
+        gru_out = self.gru_drop(masked_mean(gru_seq, mask))
+        con_out = self.con_drop(self.convs(gru_seq * mask[..., None], bl))
         full = [gru_out, con_out, org_out, attn_out]
         if self.concate == "full":
             features = torch.cat(full, dim=1)
@@ -81,21 +87,23 @@ class TextGruEncoder(nn.Module):
     def __init__(self, vocab_size: int, word_dim: int, rnn_size: int,
                  kernel_num: int, kernel_sizes: Sequence[int],
                  mapping_in: int, mapping_out: int, concate: str = "full",
-                 norm: bool = False):
+                 norm: bool = False, dropout: float = 0.2):
         super().__init__()
         self.concate, self.norm = concate, norm
         self.embed = nn.Parameter(torch.empty(vocab_size, word_dim))
         self.rnn = BiGRU(word_dim, rnn_size, packed=True)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.text_mapping = MFC(mapping_in, mapping_out)
+        self.text_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.gru_drop = Dropout(dropout)
+        self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):
         mask = t.mask.float()
         lengths = t.mask.sum(dim=1).to(torch.int64)
         bl = batch_max_len(mask)
         gru_seq = self.rnn(self.embed[t.tokens], lengths=lengths)
-        gru_out = masked_mean(gru_seq, mask)
-        con_out = self.convs(gru_seq, bl)
+        gru_out = self.gru_drop(masked_mean(gru_seq, mask))
+        con_out = self.con_drop(self.convs(gru_seq, bl))
         if self.concate == "full":
             features = torch.cat([t.bows, gru_out, con_out], dim=1)
         else:
@@ -113,12 +121,14 @@ class TextTransformersEncoder(nn.Module):
     def __init__(self, bert: BertConfig, kernel_num: int,
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
-                 level: str = "1+2+3", norm: bool = False):
+                 level: str = "1+2+3", norm: bool = False,
+                 dropout: float = 0.2):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.bert = BertEncoder(bert)
         self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes)
-        self.text_mapping = MFC(mapping_in, mapping_out)
+        self.text_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):
         mask = t.mask
@@ -128,7 +138,7 @@ class TextTransformersEncoder(nn.Module):
         pos_valid = torch.arange(mask.shape[1], device=mask.device)[None, :] < bl
         conv_in = torch.where(pos_valid[..., None], last_hidden,
                               torch.zeros_like(last_hidden))
-        con_out = self.convs(conv_in, bl)
+        con_out = self.con_drop(self.convs(conv_in, bl))
         full = [t.bows, tf_out, con_out]
         if self.concate == "full":
             features = torch.cat(full, dim=1)

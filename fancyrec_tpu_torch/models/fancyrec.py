@@ -1,10 +1,13 @@
-"""The FancyRec composite model, evaluation mode.
+"""The FancyRec composite model.
 
 Port of fancyrec_tpu/models/fancyrec.py: a brand-aspects tower beside a
 visual and a text tower joined by a fusion head. Submodule names follow
 the JAX parameter tree (brand_encoding, vid_encoding, text_encoding,
 fusion_encoding), so `fancyrec_tpu_torch.interop` carries JAX weights
-across by name. The port is float32 end to end.
+across by name. The port is float32 end to end. `model.eval()` is the JAX
+package's deterministic=True; `model.train()` turns on the dropouts and
+the projection head's batch statistics, after `seed_dropout` has given
+the dropouts their generators.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from fancyrec_tpu_torch.models.encoders import (
     TextBatch, TextGruEncoder, TextTransformersEncoder, VisualBatch,
     VisualEncoder)
 from fancyrec_tpu_torch.models.fusion import FusionFC, FusionProjectionHead
+from fancyrec_tpu_torch.models.layers import Dropout
 
 
 class FancyRec(nn.Module):
@@ -45,7 +49,8 @@ class FancyRec(nn.Module):
                 kernel_sizes=cfg.visual_kernel_sizes_list,
                 mapping_in=cfg.visual_mapping_in,
                 mapping_out=cfg.visual_mapping_size, concate=cfg.concate,
-                level=cfg.level_vis, norm=cfg.visual_norm)
+                level=cfg.level_vis, norm=cfg.visual_norm,
+                dropout=cfg.dropout)
         if not cfg.single_modal_visual:
             if cfg.text_net == "bi-gru":
                 self.text_encoding = TextGruEncoder(
@@ -55,7 +60,7 @@ class FancyRec(nn.Module):
                     kernel_sizes=cfg.text_kernel_sizes_list,
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
-                    norm=cfg.text_norm)
+                    norm=cfg.text_norm, dropout=cfg.dropout)
             elif cfg.text_net == "transformers":
                 self.text_encoding = TextTransformersEncoder(
                     bert=BertConfig(
@@ -65,12 +70,15 @@ class FancyRec(nn.Module):
                         num_attention_heads=cfg.bert_num_heads,
                         intermediate_size=cfg.bert_intermediate_size,
                         max_position_embeddings=cfg.bert_max_position,
-                        type_vocab_size=cfg.bert_type_vocab),
+                        type_vocab_size=cfg.bert_type_vocab,
+                        hidden_dropout_prob=cfg.bert_dropout,
+                        attention_probs_dropout_prob=cfg.bert_dropout),
                     kernel_num=cfg.text_kernel_num,
                     kernel_sizes=cfg.text_kernel_sizes_list,
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
-                    level=cfg.level_txt, norm=cfg.text_norm)
+                    level=cfg.level_txt, norm=cfg.text_norm,
+                    dropout=cfg.dropout)
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
@@ -82,6 +90,20 @@ class FancyRec(nn.Module):
                 self.fusion_encoding = FusionProjectionHead(
                     fused_in, cfg.common_embedding_size,
                     prj_head_output=cfg.prj_head_output)
+
+    def seed_dropout(self, seed: int) -> "FancyRec":
+        """Seed the training-mode randomness: every tower dropout draws from
+        one generator on the model's device, the brand dropout's seed words
+        from one on the host (so drawing them never waits for the device).
+        Call after moving the model to its device."""
+        dev = next(self.parameters()).device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = gen
+        self.brand_encoding.seed_generator = torch.Generator().manual_seed(
+            seed + 1)
+        return self
 
     def embed_brand(self, brand_ids: torch.Tensor) -> torch.Tensor:
         """Mean over the aspect axis of the brand's weighted aspects."""

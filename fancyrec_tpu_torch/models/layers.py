@@ -37,15 +37,39 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return s / cnt
 
 
-class MFC(nn.Module):
-    """Linear -> ReLU common-space mapping (dropout is identity in eval)."""
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit generator, never
+    the global RNG, so a seeded run replays. `FancyRec.seed_dropout` hands
+    every Dropout of a model one generator on the model's device. Identity
+    in evaluation mode and at p = 0, as flax's nn.Dropout."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, p: float):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, out_dim)
+        self.p = p
+        self.generator = None
 
     def forward(self, x):
-        return F.relu(self.fc1(x))
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in training mode draws from an "
+                               "explicit generator: call seed_dropout(seed) "
+                               "on the model first")
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+class MFC(nn.Module):
+    """Linear -> ReLU -> Dropout common-space mapping."""
+
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.2):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, out_dim)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        return self.drop(F.relu(self.fc1(x)))
 
 
 class AttentionPool(nn.Module):
@@ -98,9 +122,11 @@ class ConvBank(nn.Module):
 
 
 class BatchNorm1dTorch(nn.Module):
-    """BatchNorm with torch's defaults (eps 1e-5), evaluation mode only:
-    normalizes with the running statistics, which the JAX package keeps in
-    its 'batch_stats' collection."""
+    """BatchNorm with torch's defaults (eps 1e-5, momentum 0.1), written out
+    as the JAX package writes it. Evaluation mode normalizes with the
+    running statistics (the JAX package's 'batch_stats' collection);
+    training mode with the batch's mean and biased variance, and moves the
+    running statistics toward the mean and the unbiased variance."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -110,5 +136,15 @@ class BatchNorm1dTorch(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + 1e-5)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(dim=0)
+            var = ((x - mean) ** 2).mean(dim=0)
+            n = x.shape[0]
+            with torch.no_grad():
+                unbiased = var * n / max(n - 1, 1)
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * unbiased)
+        y = (x - mean) * torch.rsqrt(var + 1e-5)
         return y * self.weight + self.bias

@@ -1,16 +1,23 @@
-"""The port's own checkpoint: the config JSON plus the model state dict.
+"""The port's own checkpoint: config JSON, model state dict, optimizer state.
 
-One `torch.save` file holding plain tensors and strings, so it loads with
-`weights_only=True` on any device. Reading the JAX package's FRTPU1
-checkpoints (msgpack) is not ported: carry JAX weights across with
-`fancyrec_tpu_torch.interop.load_jax_variables` instead.
+One `torch.save` file holding plain tensors, numbers and strings, so it
+loads with `weights_only=True` on any device. The serving path reads the
+config and the state dict; the trainer also the optimizer's state_dict
+(the Adam moments, for an exact resume) and the meta fields (epoch,
+best_rsum, Eiters, no_impr, lr_counter, pending_lr_scale). The file names
+and the save policy are the JAX package's (fancyrec_tpu/train/
+checkpoints.py): checkpoint_epoch_<e>.pth.tar and model_best.pth.tar.
+Reading the JAX package's FRTPU1 checkpoints (msgpack) is not ported:
+carry JAX weights across with `fancyrec_tpu_torch.interop` instead.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+import re
+import shutil
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -18,24 +25,82 @@ from torch import nn
 from fancyrec_tpu_torch.config import Config
 
 FORMAT = "fancyrec_tpu_torch/1"
+_EPOCH_FILE = re.compile(r"checkpoint_epoch_(\d+)\.pth\.tar$")
 
 
 def save_checkpoint(path: str, cfg: Config, model: nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
                     **meta: Any) -> None:
     """Write atomically (tmp + rename): a crash mid-save leaves no
-    truncated file behind. `meta` holds JSON-serializable scalars."""
+    truncated file behind for a resume to pick. `meta` holds
+    JSON-serializable scalars."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    blob = {"format": FORMAT, "config": cfg.to_json(),
+            "meta": json.dumps(meta), "state_dict": state}
+    if optimizer is not None:
+        # its tensors stay where they are; load_checkpoint maps them to CPU
+        blob["optimizer"] = optimizer.state_dict()
     tmp = path + ".tmp"
-    torch.save({"format": FORMAT, "config": cfg.to_json(),
-                "meta": json.dumps(meta), "state_dict": state}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """-> {"config": Config, "state_dict": {name: CPU tensor}, **meta}."""
+    """-> {"config": Config, "state_dict": {name: CPU tensor}, **meta}, and
+    "optimizer" (a state_dict) where one was saved."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(blob, dict) or blob.get("format") != FORMAT:
         raise ValueError("not a %s checkpoint: %s" % (FORMAT, path))
-    return {"config": Config.from_json(blob["config"]),
-            "state_dict": blob["state_dict"], **json.loads(blob["meta"])}
+    out = {"config": Config.from_json(blob["config"]),
+           "state_dict": blob["state_dict"], **json.loads(blob["meta"])}
+    if "optimizer" in blob:
+        out["optimizer"] = blob["optimizer"]
+    return out
+
+
+def latest_epoch_checkpoint(logdir: str):
+    """-> (epoch, path) of the newest epoch checkpoint, or (-1, None)."""
+    best = (-1, None)
+    if os.path.isdir(logdir):
+        for f in os.listdir(logdir):
+            m = _EPOCH_FILE.match(f)
+            if m and int(m.group(1)) > best[0]:
+                best = (int(m.group(1)), os.path.join(logdir, f))
+    return best
+
+
+def prune_old_checkpoints(state_dir: str, keep: int) -> None:
+    """Delete all but the newest `keep` epoch checkpoints (by epoch number);
+    keep <= 0 keeps everything. model_best.pth.tar is a copy and is never
+    pruned."""
+    if keep <= 0 or not os.path.isdir(state_dir):
+        return
+    epochs = sorted((int(m.group(1)), f) for f in os.listdir(state_dir)
+                    for m in [_EPOCH_FILE.match(f)] if m)
+    for _, f in epochs[:-keep]:
+        try:
+            os.remove(os.path.join(state_dir, f))
+        except FileNotFoundError:
+            pass
+
+
+def maybe_save_best(state_dir: str, cfg: Config, model: nn.Module,
+                    epoch: int, score: float, best_rsum: float, eiters: int,
+                    best_epoch: Optional[int],
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    extra_meta: Optional[dict] = None) -> float:
+    """The reference's policy: write the epoch file when there is no best
+    yet or score > 0.99 best, copy it to model_best on improvement, return
+    the new best. The file records the running best (the JAX package's
+    fix: the reference stores the epoch's own score)."""
+    filename = os.path.join(state_dir, "checkpoint_epoch_%s.pth.tar" % epoch)
+    new_best = max(score, best_rsum)
+    if best_epoch is None or score > best_rsum * 0.99:
+        save_checkpoint(filename, cfg, model, optimizer, epoch=epoch + 1,
+                        best_rsum=new_best, Eiters=eiters,
+                        **(extra_meta or {}))
+    if score > best_rsum:
+        shutil.copyfile(filename, os.path.join(state_dir, "model_best.pth.tar"))
+    prune_old_checkpoints(state_dir, cfg.keep_checkpoints)
+    return new_best

@@ -34,6 +34,13 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and all(f.exists() for f in files)
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    assert {"fancyrec_tpu_torch/losses/losses.py",
+            "fancyrec_tpu_torch/ops/brand_dropout.py",
+            "fancyrec_tpu_torch/train/trainer.py",
+            "fancyrec_tpu_torch/train/step.py",
+            "fancyrec_tpu_torch/eval/metrics.py",
+            "fancyrec_tpu_torch/utils/tb_events.py"} <= scanned
     bad = ["%s:%d imports %s" % (f.relative_to(ROOT), line, mod)
            for f in files for line, mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -48,6 +55,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
     from fancyrec_tpu_torch.device import resolve_device
     from fancyrec_tpu_torch.serving import index, server
+    from fancyrec_tpu_torch.train import trainer
 
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -63,10 +71,18 @@ def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
         index.main(["query", str(tmp_path), "--brands", "0"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         server.main([str(tmp_path), "--port", "0"])
+    for dev in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.main(["train", "val", "test", "--rootpath",
+                          str(tmp_path)] + dev)
+    assert not (tmp_path / "model").exists()      # refused before any write
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda
+    from fancyrec_tpu_torch.ops.brand_dropout import (
+        aspect_dropout_bwd_cuda, aspect_dropout_fwd_cuda)
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_cuda)
     from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
 
     with pytest.raises(ValueError, match="CUDA"):
@@ -75,3 +91,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         topk_int8_cuda(torch.zeros(1, 4), torch.zeros(3, 4, dtype=torch.int8),
                        torch.zeros(3), 2)
+    x = torch.zeros(2, 2, 1, 6)
+    h = torch.zeros(2, 2, 1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        gru_scan_bwd_cuda(x, h, h, torch.zeros(2, 6, 2), torch.zeros(2, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        aspect_dropout_fwd_cuda(torch.zeros(2, 3), torch.zeros(3, 4), (0, 0),
+                                0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        aspect_dropout_bwd_cuda(torch.zeros(2, 3), torch.zeros(3, 4),
+                                torch.zeros(2, 4), (0, 0), 0.5)
