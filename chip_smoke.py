@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -23,9 +23,13 @@ Phases:
      card against the same step on the CPU; one update of 8 microbatches
      timed and profiled (device time by kernel group); then the trainer
      CLI for one epoch with bin/instance.sh's flags on a synthetic
-     train/val/test tree, and an index built from the checkpoint it wrote.
-The kernels' launch counts are zeroed just before each of the two paths
-(4 and 5c) and read just after: each kernel must have run on its path.
+     train/val/test tree, and an index built from the checkpoint it wrote;
+  6. evaluation: the tester CLI (`fancyrec_tpu_torch.eval.tester`) on the
+     checkpoint that 5's trainer wrote, over the test split; its eight
+     metrics must be finite and equal those of the plain cosine of the
+     same embeddings.
+The kernels' launch counts are zeroed just before each of the three paths
+(4, 5c and 6) and read just after: each kernel must have run on its path.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
@@ -71,6 +75,9 @@ K1B_TOL = 1e-4    # float32; sum order over 3H=3072 and 64 reverse steps
 K2_TOL = 1e-5     # float32 sums over 2000 aspects or 1024 columns; a single
                   # dropped element moves an output by |w asp|/1000 ~ 1e-3
 K3_TOL = 1e-6     # the same float32 products; only the sort differs
+K4_TOL = 2e-5     # float32 sums over D=1024 in another order; the JAX
+                  # package's tolerance for its kernel (test_similarity_ops)
+N_EVAL = N_BRANDS * (TRAIN_VIDEOS_PER_BRAND + TRAIN_IMGS_PER_BRAND)  # test
 ENC_TOL = dict(atol=1e-4, rtol=1e-3)   # card vs CPU, float32, no TF32
 
 
@@ -189,6 +196,77 @@ def check_topk(dev):
             "replaces": "fancyrec_tpu/ops/similarity.py:242",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roofline(nbytes, ops, INT8_OPS), "library_ms": None}
+
+
+def _cosine_case(g, dev, b, n, d, zero_post=None):
+    import torch
+    brands = torch.randn(b, d, generator=g, device=dev)
+    posts = torch.randn(n, d, generator=g, device=dev)
+    if zero_post is not None:
+        posts[zero_post] = 0.0
+    return brands, posts
+
+
+def _cosine_err(got, want):
+    """max |kernel - plain| over the finite entries; fails unless the NaNs
+    (all-zero rows) stand in the same places."""
+    import torch
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("nan")
+    return (got[~nan] - want[~nan]).abs().max().item() if (~nan).any() else 0.0
+
+
+def check_cosine(dev):
+    """K4 at the 1M-post evaluation (51 x 1,000,000 x 1024), at the tester's
+    shape (51 x N_EVAL) and at edge shapes: kernel vs plain vs the one-call
+    PyTorch cosine (cuBLAS, float32)."""
+    import torch
+    import torch.nn.functional as F
+    from fancyrec_tpu_torch.ops.similarity import (
+        cosine_scores_cuda, cosine_scores_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # edges: one brand, a ragged post tile, D not a multiple of the stage,
+    # an all-zero post row (NaN in the same column), two brand tiles
+    for b, n, d, zero in ((1, 777, 130, 5), (6, 4096, 1024, 4095),
+                          (70, 1000, 33, 0), (51, 128, 1, None)):
+        brands, posts = _cosine_case(g, dev, b, n, d, zero)
+        err = _cosine_err(cosine_scores_cuda(brands, posts),
+                          cosine_scores_ref(brands, posts))
+        if not err <= K4_TOL:
+            fail("cosine_scores B=%d N=%d D=%d zero row %s: max err %.3g "
+                 "(NaN where the plain version has none, or > %g)"
+                 % (b, n, d, zero, err, K4_TOL))
+    times = {}
+    for n in (N_EVAL, N_POSTS):
+        brands, posts = _cosine_case(g, dev, N_BRANDS, n, DIM)
+        with torch.no_grad():
+            out_k = cosine_scores_cuda(brands, posts)
+            out_p = cosine_scores_ref(brands, posts)
+            torch.cuda.synchronize()
+            err = _cosine_err(out_k, out_p)
+            log("cosine_scores %d x %d x %d: max |kernel - plain| = %.3g "
+                "(tolerance %g)" % (N_BRANDS, n, DIM, err, K4_TOL))
+            if not err <= K4_TOL:
+                fail("cosine_scores kernel disagrees with its plain version")
+            times[n] = (
+                cuda_ms(lambda: cosine_scores_cuda(brands, posts), 20),
+                cuda_ms(lambda: cosine_scores_ref(brands, posts), 5),
+                cuda_ms(lambda: F.normalize(brands) @ F.normalize(posts).T,
+                        20))
+        log("cosine_scores %d x %d x %d: kernel %.4f ms, plain %.4f ms, "
+            "F.normalize @ F.normalize.T (cuBLAS) %.4f ms" % ((N_BRANDS, n, DIM)
+                                                              + times[n]))
+    ms, plain_ms, library_ms = times[N_POSTS]
+    ops = 2 * N_BRANDS * N_POSTS * DIM
+    nbytes = 4 * (brands.numel() + posts.numel() + out_k.numel())
+    del out_k, out_p, posts
+    return {"name": "cosine_scores", "route": "cuda",
+            "source": "fancyrec_tpu_torch/csrc/cosine_scores.cu",
+            "replaces": "fancyrec_tpu/ops/similarity.py:108",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **roofline(nbytes, ops, F32_FLOPS), "library_ms": library_ms}
 
 
 def _gru_inputs(g, dev, t, b, h):
@@ -355,10 +433,10 @@ def check_aspect_dropout(dev):
 
 
 def check_edges(dev):
-    """Every kernel against its plain version on the card at small shapes
-    that the main paths do not reach: ragged tiles, bf16, exact ties, k
-    above the valid rows, several brand tiles, odd D, odd aspect counts
-    and column counts."""
+    """K1, K2 and K3 against their plain versions on the card at small
+    shapes that the main paths do not reach: ragged tiles, bf16, exact
+    ties, k above the valid rows, several brand tiles, odd D, odd aspect
+    counts and column counts (K4's edges are in check_cosine)."""
     import torch
     from fancyrec_tpu_torch.ops.brand_dropout import (
         aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
@@ -446,11 +524,13 @@ def _wrappers():
         aspect_dropout_bwd_cuda, aspect_dropout_fwd_cuda)
     from fancyrec_tpu_torch.ops.gru_scan import (
         gru_scan_bwd_cuda, gru_scan_cuda)
-    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
+    from fancyrec_tpu_torch.ops.similarity import (
+        cosine_scores_cuda, topk_int8_cuda)
     return {"gru_scan": gru_scan_cuda, "topk_int8": topk_int8_cuda,
             "gru_scan_bwd": gru_scan_bwd_cuda,
             "aspect_dropout_fwd": aspect_dropout_fwd_cuda,
-            "aspect_dropout_bwd": aspect_dropout_bwd_cuda}
+            "aspect_dropout_bwd": aspect_dropout_bwd_cuda,
+            "cosine_scores": cosine_scores_cuda}
 
 
 def zero_counts():
@@ -830,8 +910,9 @@ def train_path(root, dev):
     """Phase 5c: the trainer CLI on the card for one epoch with
     bin/instance.sh's flags. The kernels' counts are zeroed just before it
     and read just after (the trainer's last act is to read its losses,
-    which waits for the card); then the serving path builds an index from
-    the checkpoint it wrote."""
+    which waits for the card); its validation ranks the test split with
+    the cosine kernel. Then the serving path builds an index from the
+    checkpoint it wrote."""
     from fancyrec_tpu_torch.serving import index as sindex
     from fancyrec_tpu_torch.train import trainer
 
@@ -862,6 +943,9 @@ def train_path(root, dev):
     if counts["gru_scan"] < micro:
         fail("gru_scan launched %d times for %d microbatches"
              % (counts["gru_scan"], micro))
+    if counts["cosine_scores"] != 1:             # one validation an epoch
+        fail("cosine_scores launched %d times in one epoch's validation"
+             % counts["cosine_scores"])
     ckpt = os.path.join(logdir, "model_best.pth.tar")
     idx = os.path.join(root, "trained_index")
     n = uncounted(lambda: sindex.build_index(
@@ -869,6 +953,78 @@ def train_path(root, dev):
     log("the serving path built a %d-post index from the trained checkpoint"
         % n)
     return counts, rec
+
+
+def tester_path(root, dev):
+    """Phase 6: the tester CLI on the card on the checkpoint that phase 5c's
+    trainer wrote, over the test split at recipe width. The kernels' counts
+    are zeroed just before it and read just after (the metrics are read on
+    the host, which waits for the card). Its ranking is recorded as it
+    runs, so that the plain cosine of the same embeddings can be ranked
+    after it."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.eval import tester
+    from fancyrec_tpu_torch.eval.evaluator import brand_embeddings
+    from fancyrec_tpu_torch.eval.metrics import ranking_metrics
+    from fancyrec_tpu_torch.ops.similarity import (
+        cosine_scores_cuda, cosine_scores_ref)
+
+    logdir = os.path.join(root, "model", "chip_smoke")
+    seen = {}
+    ranking = tester.test_post_ranking
+
+    def record(model, brand_num, post_embs, brands, device):
+        seen.update(model=model, post_embs=post_embs, brands=brands)
+        return ranking(model, brand_num, post_embs, brands, device)
+
+    tester.test_post_ranking = record
+    try:
+        zero_counts()
+        t0 = time.time()
+        m = tester.main(["insCartest", "--rootpath", root, "--logger_name",
+                         logdir, "--batch_size", str(B_ENC), "--device",
+                         str(dev)])
+        wall = time.time() - t0
+        counts = read_counts()
+    finally:
+        tester.test_post_ranking = ranking
+    n_batches = -(-N_EVAL // B_ENC)
+    log("tester CLI, %d test posts in %d batches at recipe width: %.2f s "
+        "wall; AUC %.6f NDCG@10 %.6f NDCG@50 %.6f R@1/5/10 %.2f/%.2f/%.2f "
+        "MedR %g MeanR %g" % (N_EVAL, n_batches, wall, m.auc, m.ndcg10,
+                              m.ndcg50, m.r1, m.r5, m.r10, m.medr, m.meanr))
+    log("evaluation path launches: %s" % counts)
+    if not all(math.isfinite(v) for v in m):
+        fail("the tester's metrics are not finite: %s" % (m,))
+    if counts["cosine_scores"] < 1 or counts["gru_scan"] != n_batches:
+        fail("the tester launched cosine_scores %d times and gru_scan %d "
+             "times for %d encode batches" % (
+                 counts["cosine_scores"], counts["gru_scan"], n_batches))
+    with open(os.path.join(logdir, "mean_metrics.json")) as f:
+        written = json.load(f)
+    if written != {k: float(v) for k, v in m._asdict().items()}:
+        fail("mean_metrics.json %s differs from the printed metrics"
+             % written)
+    # the same embeddings ranked by the plain cosine
+    with torch.no_grad():
+        aspects = brand_embeddings(seen["model"], N_BRANDS, dev)
+        posts = torch.as_tensor(seen["post_embs"], device=dev)
+        plain = cosine_scores_ref(aspects, posts)
+        k4 = uncounted(lambda: cosine_scores_cuda(aspects, posts))
+        want = ranking_metrics(plain, np.asarray(seen["brands"]), N_BRANDS)
+    err = _cosine_err(k4, plain)
+    rank_ok = all(getattr(m, k) == getattr(want, k)
+                  for k in ("medr", "meanr", "r1", "r5", "r10"))
+    diff = max(abs(getattr(m, k) - getattr(want, k))
+               for k in ("auc", "ndcg10", "ndcg50"))
+    log("tester metrics vs the plain cosine's: rank metrics %s, AUC/NDCG "
+        "max |diff| %.3g (tolerance 1e-6); scores max |K4 - plain| %.3g"
+        % ("equal" if rank_ok else "DIFFER", diff, err))
+    if not (rank_ok and diff <= 1e-6):
+        fail("the tester's metrics %s differ from the plain cosine's %s"
+             % (m, want))
+    return counts
 
 
 def main():
@@ -901,7 +1057,8 @@ def main():
 
     # 2. build
     t0 = time.time()
-    reports = _build.build(["gru_scan", "topk_int8", "aspect_dropout"])
+    reports = _build.build(["gru_scan", "topk_int8", "aspect_dropout",
+                            "cosine_scores"])
     log("kernels built in %.1f s" % (time.time() - t0))
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -911,7 +1068,7 @@ def main():
     # 3. kernels vs their plain versions
     gru_bwd, fwd_b8_ms = check_gru_train(dev)
     kernels = ([check_gru(dev), check_topk(dev), gru_bwd]
-               + check_aspect_dropout(dev))
+               + check_aspect_dropout(dev) + [check_cosine(dev)])
     check_edges(dev)
     torch.cuda.empty_cache()
 
@@ -939,13 +1096,17 @@ def main():
         profile_update(root, dev)
         torch.cuda.empty_cache()
         training, _ = train_path(root, dev)
+        torch.cuda.empty_cache()
+        # 6. evaluation: the tester CLI on the trained checkpoint
+        evaluation = tester_path(root, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms; launches on "
         "the training path: %d" % (B_TRAIN, fwd_b8_ms, training["gru_scan"]))
+    paths = {"gru_scan": serving, "topk_int8": serving,
+             "cosine_scores": evaluation}
     for k in kernels:
-        path = serving if k["name"] in ("gru_scan", "topk_int8") else training
-        k["launches"] = path[k["name"]]
+        k["launches"] = paths.get(k["name"], training)[k["name"]]
         if k["launches"] < 1:
             fail("%s was not launched on its main path" % k["name"])
 

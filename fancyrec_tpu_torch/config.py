@@ -419,12 +419,12 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 # flags the port does not implement, with the value that means "off": the
 # JAX package's meshes, pipelining, sequence sharding, dropout PRNG choice,
-# XLA compile cache, bf16 host staging and profiler, BERT rematerialization
-# (torch's checkpointing would redraw the dropout masks from the explicit
-# generators on recompute) and word2vec init
+# XLA compile cache, bf16 host staging and profiler, and BERT
+# rematerialization (torch's checkpointing would redraw the dropout masks
+# from the explicit generators on recompute)
 _NOT_PORTED = {"mesh_shape": "", "seq_shard": False, "rng_impl": "threefry",
                "compilation_cache_dir": "", "transfer_dtype": "",
-               "profile_dir": "", "bert_remat": 0, "w2v_feature": ""}
+               "profile_dir": "", "bert_remat": 0}
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

@@ -1,7 +1,10 @@
 """Encode a collection's posts and the brands, and rank posts for brands.
 
-Port of `encode_data`, `brand_embeddings` and `test_post_ranking` from
-fancyrec_tpu/eval/evaluator.py, on one device.
+Port of `encode_data`, the single-modality encoders, `random_sim`,
+`brand_embeddings` and `test_post_ranking` from
+fancyrec_tpu/eval/evaluator.py, on one device. The brands x posts cosine
+of `test_post_ranking` is the cosine kernel (`ops.similarity.
+cosine_scores`: `csrc/cosine_scores.cu` for CUDA tensors).
 """
 
 from __future__ import annotations
@@ -12,9 +15,9 @@ import numpy as np
 import torch
 
 from fancyrec_tpu_torch.data.loader import bucket_batch, prefetch_to_device
-from fancyrec_tpu_torch.eval.metrics import (
-    RankingMetrics, cosine_sim_matrix, ranking_metrics)
+from fancyrec_tpu_torch.eval.metrics import RankingMetrics, ranking_metrics
 from fancyrec_tpu_torch.models.encoders import TextBatch, VisualBatch
+from fancyrec_tpu_torch.ops.similarity import cosine_scores
 
 # model-input keys of a batch dict; the rest (idxs, n_valid) is host-side
 # scatter bookkeeping that never reaches the device
@@ -22,13 +25,31 @@ _MODEL_KEYS = ("frames", "origin", "vmask", "bows", "tokens", "type_ids",
                "tmask")
 
 
+def _visual(dev: dict) -> VisualBatch:
+    return VisualBatch(frames=dev["frames"], mean_origin=dev["origin"],
+                       mask=dev["vmask"])
+
+
+def _text(dev: dict) -> TextBatch:
+    return TextBatch(bows=dev["bows"], tokens=dev["tokens"].long(),
+                     type_ids=dev["type_ids"].long(), mask=dev["tmask"])
+
+
 def encode_batch(model, dev: dict) -> torch.Tensor:
     """One batch of device tensors -> post embeddings (B, common)."""
-    v = VisualBatch(frames=dev["frames"], mean_origin=dev["origin"],
-                    mask=dev["vmask"])
-    t = TextBatch(bows=dev["bows"], tokens=dev["tokens"].long(),
-                  type_ids=dev["type_ids"].long(), mask=dev["tmask"])
-    return model.embed_post(v, t)
+    return model.embed_post(_visual(dev), _text(dev))
+
+
+def encode_vis(model, dev: dict) -> torch.Tensor:
+    """Visual-only embedding of one batch (frames, origin, vmask), without
+    the fusion head: the JAX package's make_encode_vis_fn."""
+    return model.embed_vis(_visual(dev))
+
+
+def encode_txt(model, dev: dict) -> torch.Tensor:
+    """Text-only embedding of one batch (bows, tokens, type_ids, tmask):
+    the JAX package's make_encode_txt_fn."""
+    return model.embed_txt(_text(dev))
 
 
 @torch.no_grad()
@@ -58,6 +79,16 @@ def encode_data(model, loader, common_dim: int, device: torch.device,
     return brands, post_embs
 
 
+def random_sim(num_brands: int, num_test_posts: int,
+               seed: int = None) -> np.ndarray:
+    """Random-baseline similarity matrix (the reference evaluator's
+    random_sim, whose one call site there is commented out): swap it for
+    the cosine scores to check that the metrics fall to chance. Seeded as
+    the JAX package seeds it, so a seed gives the same matrix."""
+    rng = np.random.RandomState(seed) if seed is not None else np.random
+    return rng.rand(num_brands, num_test_posts)
+
+
 @torch.no_grad()
 def brand_embeddings(model, brand_num: int, device: torch.device
                      ) -> torch.Tensor:
@@ -72,6 +103,5 @@ def test_post_ranking(model, brand_num: int, post_embs, brands,
     """The brands x posts cosine matrix on `device` and its ranking
     metrics (the reference evaluator's test_post_ranking)."""
     aspects = brand_embeddings(model, brand_num, device)
-    scores = cosine_sim_matrix(aspects,
-                               torch.as_tensor(post_embs, device=device))
+    scores = cosine_scores(aspects, torch.as_tensor(post_embs, device=device))
     return ranking_metrics(scores, brands, brand_num)

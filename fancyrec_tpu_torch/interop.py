@@ -9,7 +9,10 @@ leaf's path maps onto a state-dict key; only layouts change:
   * LayerNorm/BatchNorm `scale` -> `weight`;
   * BatchNorm running stats `batch_stats/.../mean|var` ->
     `running_mean|running_var` buffers;
-  * GRU weights are already in torch layout.
+  * GRU weights and the 'attn' fusion's vectors (vis_linear, text_linear,
+    b) are already in torch layout.
+`models.torch_import` builds the same trees from the reference's torch
+checkpoints.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Dual-branch multi-level encoders (visual / text).
 
 Port of fancyrec_tpu/models/encoders.py without its mesh branches
-(sequence sharding, the pipelined BERT stack). Training mode
+(sequence sharding, the pipelined BERT stack). With `attn_fusion` (the
+'attn' fusion head) a tower has no mapping MFC and returns its unmapped,
+unnormalized level concat, as in the JAX package. Training mode
 (`module.train()`) turns on the JAX package's dropouts: after the pooled
 GRU output and the conv bank of each tower, in the mapping MFC, and in
 BERT.
@@ -49,13 +51,14 @@ class VisualEncoder(nn.Module):
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, attn_fusion: bool = False):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.atten = AttentionPool(feat_dim, feat_dim // 4, heads=3)
         self.rnn = BiGRU(feat_dim, rnn_size, packed=False)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.visual_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.visual_mapping = (None if attn_fusion
+                               else MFC(mapping_in, mapping_out, dropout))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
@@ -76,6 +79,8 @@ class VisualEncoder(nn.Module):
                 "1+3": [con_out, org_out, attn_out],
                 "2+3": [gru_out, con_out],
                 "1": [org_out, attn_out], "2": [gru_out], "3": [con_out]})
+        if self.visual_mapping is None:
+            return features
         features = self.visual_mapping(features)
         return l2norm(features) if self.norm else features
 
@@ -87,13 +92,15 @@ class TextGruEncoder(nn.Module):
     def __init__(self, vocab_size: int, word_dim: int, rnn_size: int,
                  kernel_num: int, kernel_sizes: Sequence[int],
                  mapping_in: int, mapping_out: int, concate: str = "full",
-                 norm: bool = False, dropout: float = 0.2):
+                 norm: bool = False, dropout: float = 0.2,
+                 attn_fusion: bool = False):
         super().__init__()
         self.concate, self.norm = concate, norm
         self.embed = nn.Parameter(torch.empty(vocab_size, word_dim))
         self.rnn = BiGRU(word_dim, rnn_size, packed=True)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.text_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.text_mapping = (None if attn_fusion
+                             else MFC(mapping_in, mapping_out, dropout))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
@@ -108,6 +115,8 @@ class TextGruEncoder(nn.Module):
             features = torch.cat([t.bows, gru_out, con_out], dim=1)
         else:
             features = torch.cat([gru_out, con_out], dim=1)
+        if self.text_mapping is None:
+            return features
         features = self.text_mapping(features)
         return l2norm(features) if self.norm else features
 
@@ -122,12 +131,13 @@ class TextTransformersEncoder(nn.Module):
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, attn_fusion: bool = False):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.bert = BertEncoder(bert)
         self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes)
-        self.text_mapping = MFC(mapping_in, mapping_out, dropout)
+        self.text_mapping = (None if attn_fusion
+                             else MFC(mapping_in, mapping_out, dropout))
         self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):
@@ -147,5 +157,7 @@ class TextTransformersEncoder(nn.Module):
                 "1+2": [t.bows, tf_out], "1+3": [t.bows, con_out],
                 "2+3": [tf_out, con_out], "1": [t.bows], "2": [tf_out],
                 "3": [con_out]})
+        if self.text_mapping is None:
+            return features
         features = self.text_mapping(features)
         return l2norm(features) if self.norm else features

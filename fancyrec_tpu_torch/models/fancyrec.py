@@ -24,7 +24,8 @@ from fancyrec_tpu_torch.models.brand import BrandAspects
 from fancyrec_tpu_torch.models.encoders import (
     TextBatch, TextGruEncoder, TextTransformersEncoder, VisualBatch,
     VisualEncoder)
-from fancyrec_tpu_torch.models.fusion import FusionFC, FusionProjectionHead
+from fancyrec_tpu_torch.models.fusion import (
+    FusionAttnReduction, FusionFC, FusionProjectionHead)
 from fancyrec_tpu_torch.models.layers import Dropout
 
 
@@ -36,10 +37,10 @@ class FancyRec(nn.Module):
         if cfg.dtype not in ("", "float32"):
             raise NotImplementedError(
                 "the port computes in float32 only, got dtype=%r" % cfg.dtype)
-        if cfg.fusion_style not in ("fc", "ph"):
-            raise NotImplementedError(
-                "fusion_style %r is not ported (fc, ph)" % cfg.fusion_style)
+        if cfg.fusion_style not in ("fc", "ph", "attn"):
+            raise ValueError("unknown fusion_style: %s" % cfg.fusion_style)
         self.cfg = cfg
+        attn_fusion = cfg.fusion_style == "attn"
         self.brand_encoding = BrandAspects(
             cfg.brand_num, cfg.brand_aspect, cfg.common_embedding_size)
         if not cfg.single_modal_text:
@@ -50,7 +51,7 @@ class FancyRec(nn.Module):
                 mapping_in=cfg.visual_mapping_in,
                 mapping_out=cfg.visual_mapping_size, concate=cfg.concate,
                 level=cfg.level_vis, norm=cfg.visual_norm,
-                dropout=cfg.dropout)
+                dropout=cfg.dropout, attn_fusion=attn_fusion)
         if not cfg.single_modal_visual:
             if cfg.text_net == "bi-gru":
                 self.text_encoding = TextGruEncoder(
@@ -60,7 +61,8 @@ class FancyRec(nn.Module):
                     kernel_sizes=cfg.text_kernel_sizes_list,
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
-                    norm=cfg.text_norm, dropout=cfg.dropout)
+                    norm=cfg.text_norm, dropout=cfg.dropout,
+                    attn_fusion=attn_fusion)
             elif cfg.text_net == "transformers":
                 self.text_encoding = TextTransformersEncoder(
                     bert=BertConfig(
@@ -78,7 +80,7 @@ class FancyRec(nn.Module):
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
                     level=cfg.level_txt, norm=cfg.text_norm,
-                    dropout=cfg.dropout)
+                    dropout=cfg.dropout, attn_fusion=attn_fusion)
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
@@ -86,6 +88,10 @@ class FancyRec(nn.Module):
             if cfg.fusion_style == "fc":
                 self.fusion_encoding = FusionFC(
                     fused_in, cfg.common_embedding_size)
+            elif attn_fusion:
+                self.fusion_encoding = FusionAttnReduction(
+                    cfg.visual_mapping_in, cfg.text_mapping_in,
+                    cfg.common_embedding_size)
             else:
                 self.fusion_encoding = FusionProjectionHead(
                     fused_in, cfg.common_embedding_size,
@@ -136,12 +142,25 @@ def init_fancyrec(model: FancyRec, generator: torch.Generator) -> FancyRec:
     initializers: xavier-uniform mappings, fusion and attention pool;
     normal(0.02) BERT; normal(1) brand tables; U(+-1/sqrt(H)) GRU;
     lecun-normal conv kernels; U(+-0.1) word embeddings; zero biases,
-    unit norms. The numbers differ from the JAX package's for one seed."""
+    unit norms. The 'attn' fusion keeps the reference's torch defaults:
+    U(-1, 1) attention vectors (a Linear of fan-in 1), a zero bias b, and
+    U(+-1/sqrt(fan_in)) weights and biases in its two Linears. The numbers
+    differ from the JAX package's for one seed."""
     g = generator
+    attn = model.cfg.fusion_style == "attn"
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name.startswith("brand_encoding."):
+            if attn and name.startswith("fusion_encoding."):
+                if leaf in ("vis_linear", "text_linear"):
+                    bound = 1.0
+                elif leaf == "b":
+                    bound = 0.0
+                else:                              # a Linear's weight or bias
+                    bound = 1.0 / math.sqrt(getattr(
+                        model.fusion_encoding, name.split(".")[1]).in_features)
+                p.uniform_(-bound, bound, generator=g)
+            elif name.startswith("brand_encoding."):
                 p.normal_(0.0, 1.0, generator=g)
             elif ".rnn." in name:                  # every shape is (3H, ...)
                 bound = 1.0 / math.sqrt(p.shape[0] // 3)

@@ -1,6 +1,7 @@
 """Multi-modal fusion heads, evaluation mode.
 
-Port of FusionFC and FusionProjectionHead from fancyrec_tpu/models/fusion.py.
+Port of FusionFC, FusionProjectionHead and FusionAttnReduction from
+fancyrec_tpu/models/fusion.py.
 """
 
 from __future__ import annotations
@@ -43,3 +44,33 @@ class FusionProjectionHead(nn.Module):
         if self.prj_head_output:
             return x
         return self.fc2(F.relu(self.bn(self.fc1(x))))
+
+
+class FusionAttnReduction(nn.Module):
+    """Bilinear cross-modal attention fusion -- the recipe's 'attn'.
+
+    Consumes the unmapped level-concat vectors (the towers skip their
+    mapping when fusion_style is 'attn'). alpha[b, t, v] =
+    softmax over t of tanh(visual[b, v] w_vis[t] + text[b, t] w_txt[v]
+    + b[v]); the visual score sum_v alpha visual and the text score
+    sum_t alpha text each pass a Linear, and the fused embedding is the
+    ReLU of their sum. The attention map is (B, text width, visual width).
+    """
+
+    def __init__(self, visual_size: int, text_size: int, common_dim: int):
+        super().__init__()
+        # the reference's Linear(1, N, bias=False) weights, flattened
+        self.vis_linear = nn.Parameter(torch.empty(text_size))
+        self.text_linear = nn.Parameter(torch.empty(visual_size))
+        self.b = nn.Parameter(torch.zeros(visual_size))
+        self.fusion_visual_linear = nn.Linear(text_size, common_dim)
+        self.fusion_text_linear = nn.Linear(visual_size, common_dim)
+
+    def forward(self, visual_embs, text_embs):
+        vis_attn = visual_embs[:, None, :] * self.vis_linear[None, :, None]
+        txt_attn = text_embs[:, :, None] * self.text_linear[None, None, :]
+        alpha = torch.softmax(torch.tanh(vis_attn + txt_attn + self.b), dim=1)
+        visual_score = torch.einsum("btv,bv->bt", alpha, visual_embs)
+        text_score = torch.einsum("btv,bt->bv", alpha, text_embs)
+        return F.relu(self.fusion_visual_linear(visual_score)
+                      + self.fusion_text_linear(text_score))

@@ -1,8 +1,11 @@
-"""Int8 row quantization, retrieval top-k, and the fused int8 score+top-k.
+"""Cosine scores, int8 row quantization, retrieval top-k, and the fused
+int8 score+top-k.
 
-Port of fancyrec_tpu/ops/similarity.py. The fused kernel
-(`retrieval_topk_fused_int8` there) is `csrc/topk_int8.cu` here, with its
-plain PyTorch version `topk_int8_ref` beside it.
+Port of fancyrec_tpu/ops/similarity.py. Its two Pallas kernels are CUDA
+here, each with its plain PyTorch version beside it:
+`cosine_scores_pallas` is `csrc/cosine_scores.cu` (`cosine_scores_ref`),
+the evaluation's brands x posts cosine; `retrieval_topk_fused_int8` is
+`csrc/topk_int8.cu` (`topk_int8_ref`), the int8 serving query.
 
 Selection everywhere orders by (score descending, index ascending), the
 tie rule of lax.top_k, so the port returns the JAX package's indices.
@@ -30,6 +33,71 @@ from fancyrec_tpu_torch.ops import _build
 _F32_EXACT_DIM = (1 << 24) // (127 * 127)
 # 'auto' scores the whole (B, N) matrix when it fits this many bytes
 _MATRIX_LIMIT_BYTES = 512 * 2 ** 20
+
+
+def cosine_scores_ref(brands: torch.Tensor, posts: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of the cosine kernel: (B, D), (N, D) ->
+    (B, N) float32, brands divided by their norms, posts scaled by the
+    rsqrt of their sums of squares. An all-zero row gives NaN (0/0 for a
+    brand, 0 * inf for a post), as both JAX functions give."""
+    brands_n = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
+    inv = torch.rsqrt((posts * posts).sum(dim=1, keepdim=True))
+    return brands_n @ (posts * inv).T
+
+
+def cosine_scores_cuda(brands: torch.Tensor, posts: torch.Tensor
+                       ) -> torch.Tensor:
+    """Launch `csrc/cosine_scores.cu` on the current stream. The brands are
+    normalized here (51 rows); the posts inside the kernel."""
+    if brands.device.type != "cuda":
+        raise ValueError("cosine_scores_cuda needs CUDA tensors, got %s"
+                         % brands.device)
+    if brands.dim() != 2 or posts.dim() != 2 \
+            or brands.shape[1] != posts.shape[1]:
+        raise ValueError("brands (B, D) and posts (N, D) must share D, got "
+                         "%s and %s" % (tuple(brands.shape),
+                                        tuple(posts.shape)))
+    if brands.dtype != torch.float32 or posts.dtype != torch.float32:
+        raise ValueError("cosine_scores_cuda takes float32, got %s and %s"
+                         % (brands.dtype, posts.dtype))
+    if posts.device != brands.device:
+        raise ValueError("brands and posts must be on one device")
+    b, d = brands.shape
+    n = posts.shape[0]
+    if b == 0 or n == 0 or d == 0:
+        raise ValueError("need B, N, D >= 1, got B=%d N=%d D=%d" % (b, n, d))
+    brands_n = (brands / torch.linalg.norm(brands, dim=1,
+                                           keepdim=True)).contiguous()
+    posts = posts.contiguous()
+    out = torch.empty((b, n), dtype=torch.float32, device=brands.device)
+    fn = _build.load("cosine_scores").cosine_scores_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(brands.device):
+        stream = torch.cuda.current_stream(brands.device).cuda_stream
+        err = fn(brands_n.data_ptr(), posts.data_ptr(), out.data_ptr(),
+                 b, n, d, stream)
+    if err:
+        raise RuntimeError("cosine_scores kernel launch failed: CUDA error %d"
+                           % err)
+    cosine_scores_cuda.launches += 1
+    return out
+
+
+cosine_scores_cuda.launches = 0
+
+
+def cosine_scores(brands: torch.Tensor, posts: torch.Tensor) -> torch.Tensor:
+    """(B, D), (N, D) -> (B, N) float32 cosine scores, posts normalized on
+    the fly. The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if brands.device.type == "cpu":
+        return cosine_scores_ref(brands, posts)
+    if brands.device.type == "cuda":
+        return cosine_scores_cuda(brands, posts)
+    raise ValueError("cosine_scores runs on cuda or cpu tensors, got %s"
+                     % brands.device)
 
 
 def quantize_rows_int8(rows: torch.Tensor

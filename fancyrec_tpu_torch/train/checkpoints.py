@@ -7,14 +7,21 @@ config and the state dict; the trainer also the optimizer's state_dict
 best_rsum, Eiters, no_impr, lr_counter, pending_lr_scale). The file names
 and the save policy are the JAX package's (fancyrec_tpu/train/
 checkpoints.py): checkpoint_epoch_<e>.pth.tar and model_best.pth.tar.
-Reading the JAX package's FRTPU1 checkpoints (msgpack) is not ported:
-carry JAX weights across with `fancyrec_tpu_torch.interop` instead.
+
+`load_any` also reads the reference's own torch checkpoints (a list-form
+state dict beside the pickled argparse options), converted through
+`models.torch_import` and `interop`, so a GPU-trained reference model
+evaluates in the port. Reading the JAX package's FRTPU1 checkpoints
+(msgpack) is not ported: `load_any` refuses them; carry JAX weights
+across with `fancyrec_tpu_torch.interop` instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import pickle
 import re
 import shutil
 from typing import Any, Dict, Optional
@@ -25,6 +32,7 @@ from torch import nn
 from fancyrec_tpu_torch.config import Config
 
 FORMAT = "fancyrec_tpu_torch/1"
+_JAX_MAGIC = b"FRTPU1\n"      # the JAX package's msgpack checkpoints
 _EPOCH_FILE = re.compile(r"checkpoint_epoch_(\d+)\.pth\.tar$")
 
 
@@ -52,11 +60,70 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(blob, dict) or blob.get("format") != FORMAT:
         raise ValueError("not a %s checkpoint: %s" % (FORMAT, path))
+    return _unpack(blob)
+
+
+def _unpack(blob: Dict[str, Any]) -> Dict[str, Any]:
     out = {"config": Config.from_json(blob["config"]),
            "state_dict": blob["state_dict"], **json.loads(blob["meta"])}
     if "optimizer" in blob:
         out["optimizer"] = blob["optimizer"]
     return out
+
+
+def _config_from_reference_opt(opt) -> Config:
+    """The reference's pickled argparse options -> Config, as the JAX
+    package rebuilds it: unknown options dropped, the list forms that the
+    reference's setup leaves behind undone, the optimizer object dropped."""
+    known = {f.name for f in dataclasses.fields(Config)}
+    raw = {k: v for k, v in vars(opt).items() if k in known}
+    for k in ("text_mapping_size", "visual_mapping_size"):
+        if isinstance(raw.get(k), (list, tuple)):
+            raw[k] = raw[k][1]
+    for k in ("text_kernel_sizes", "visual_kernel_sizes"):
+        if isinstance(raw.get(k), (list, tuple)):
+            raw[k] = "-".join(str(x) for x in raw[k])
+    raw.pop("optimizer", None)   # the reference stores the optimizer here
+    return Config(**{k: v for k, v in raw.items()
+                     if not k.startswith("_")}).finalize()
+
+
+def load_any(path: str) -> Dict[str, Any]:
+    """The port's checkpoint or a reference torch checkpoint
+    (auto-detected) -> {"config", "state_dict", **meta}. A reference
+    checkpoint's config comes from its pickled options, with the BERT
+    dimensions read off its weights."""
+    from fancyrec_tpu_torch.interop import torch_state_from_jax
+    from fancyrec_tpu_torch.models.torch_import import (
+        fancyrec_variables_from_reference)
+
+    with open(path, "rb") as f:
+        if f.read(len(_JAX_MAGIC)) == _JAX_MAGIC:
+            raise ValueError(
+                "%s is a JAX-package checkpoint (FRTPU1, msgpack), which the "
+                "port does not read: carry its weights across with "
+                "fancyrec_tpu_torch.interop.load_jax_variables" % path)
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:      # objects beyond tensors and numbers
+        blob = None
+    if isinstance(blob, dict) and blob.get("format") == FORMAT:
+        return _unpack(blob)
+    # The reference pickles its argparse.Namespace of options, optimizer
+    # object included, beside the weights: only a full unpickling
+    # (weights_only=False) restores it. Load only checkpoints you trust.
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if not (isinstance(ckpt, dict) and isinstance(ckpt.get("model"), list)):
+        raise ValueError("neither a %s nor a reference FancyRec checkpoint: "
+                         "%s" % (FORMAT, path))
+    cfg = _config_from_reference_opt(ckpt["opt"])
+    variables = fancyrec_variables_from_reference(ckpt["model"], cfg)
+    return {"config": cfg,
+            "state_dict": torch_state_from_jax(
+                variables["params"], variables.get("batch_stats")),
+            "epoch": ckpt.get("epoch", 0),
+            "best_rsum": ckpt.get("best_rsum", 0.0),
+            "Eiters": ckpt.get("Eiters", 0)}
 
 
 def latest_epoch_checkpoint(logdir: str):

@@ -9,9 +9,10 @@ profiler). The same flags, on-disk layout, checkpoint policy, lr schedule
 (x lr_decay_rate each epoch, a further x0.5 after 2 stale epochs), early
 stop after 10 stale epochs, a fresh contrastive queue each epoch, and
 model selection on --validate_split (default the test split, the
-reference's choice). Each epoch prints its updates and posts/s and
-appends its metrics to <rootpath>/model/<postfix>/metrics.jsonl and a
-TensorBoard event file beside it.
+reference's choice). With --w2v_feature the bi-GRU text tower's word
+embeddings start from a word2vec store. Each epoch prints its updates and
+posts/s and appends its metrics to <rootpath>/model/<postfix>/
+metrics.jsonl and a TensorBoard event file beside it.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from fancyrec_tpu_torch.eval.metrics import composite_score
 from fancyrec_tpu_torch.io.bigfile import ImageBigFile
 from fancyrec_tpu_torch.io.dictfile import read_dict
 from fancyrec_tpu_torch.io.vocab import Bow2Vec, load_vocab
+from fancyrec_tpu_torch.io.word2vec import get_we_parameter
 from fancyrec_tpu_torch.losses import init_queue_state
 from fancyrec_tpu_torch.train import checkpoints
 from fancyrec_tpu_torch.train.state import (
@@ -95,6 +97,24 @@ def build_datasets(cfg: Config) -> Dict[str, PostDataset]:
             max_frames=cfg.max_frames, max_tokens=cfg.max_tokens,
             max_words=cfg.max_words)
     return datasets
+
+
+def init_word_embeddings(model, cfg: Config) -> None:
+    """--w2v_feature: overwrite the bi-GRU text tower's embedding table
+    with word2vec vectors (OOV words U(-1, 1) from cfg.seed), as the JAX
+    trainer does; a table of another shape keeps its random init."""
+    rnn_vocab = load_vocab(os.path.join(
+        cfg.rootpath, cfg.trainCollection, "TextData", "vocabulary", "rnn",
+        cfg.vocab + ".pkl"))
+    we = get_we_parameter(rnn_vocab, cfg.w2v_feature, seed=cfg.seed)
+    embed = model.text_encoding.embed
+    if we.shape == tuple(embed.shape):
+        with torch.no_grad():
+            embed.copy_(torch.from_numpy(we))
+        print("initialized word embeddings from %s" % cfg.w2v_feature)
+    else:
+        print("w2v shape %s != embed %s; keeping random init"
+              % (we.shape, tuple(embed.shape)))
 
 
 def validate(model, loader, cfg: Config, device: torch.device):
@@ -222,6 +242,8 @@ def _run(cfg: Config, device: torch.device):
     }
 
     model, opt, state = init_state(cfg, device)
+    if cfg.w2v_feature and cfg.text_net == "bi-gru":
+        init_word_embeddings(model, cfg)
     print("model parameters: %d" % sum(p.numel() for p in model.parameters()))
     best_rsum, no_impr, lr_counter = 0.0, 0, 0
     best_epoch = None

@@ -40,6 +40,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "fancyrec_tpu_torch/train/trainer.py",
             "fancyrec_tpu_torch/train/step.py",
             "fancyrec_tpu_torch/eval/metrics.py",
+            "fancyrec_tpu_torch/eval/tester.py",
+            "fancyrec_tpu_torch/eval/scorers.py",
+            "fancyrec_tpu_torch/data/modality.py",
+            "fancyrec_tpu_torch/io/word2vec.py",
+            "fancyrec_tpu_torch/models/torch_import.py",
             "fancyrec_tpu_torch/utils/tb_events.py"} <= scanned
     bad = ["%s:%d imports %s" % (f.relative_to(ROOT), line, mod)
            for f in files for line, mod in _imported_modules(f)
@@ -54,6 +59,7 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
     from fancyrec_tpu_torch.device import resolve_device
+    from fancyrec_tpu_torch.eval import tester
     from fancyrec_tpu_torch.serving import index, server
     from fancyrec_tpu_torch.train import trainer
 
@@ -75,6 +81,9 @@ def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer.main(["train", "val", "test", "--rootpath",
                           str(tmp_path)] + dev)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tester.main(["test", "--rootpath", str(tmp_path),
+                         "--logger_name", str(tmp_path)] + dev)
     assert not (tmp_path / "model").exists()      # refused before any write
 
 
@@ -83,7 +92,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         aspect_dropout_bwd_cuda, aspect_dropout_fwd_cuda)
     from fancyrec_tpu_torch.ops.gru_scan import (
         gru_scan_bwd_cuda, gru_scan_cuda)
-    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
+    from fancyrec_tpu_torch.ops.similarity import (
+        cosine_scores_cuda, topk_int8_cuda)
 
     with pytest.raises(ValueError, match="CUDA"):
         gru_scan_cuda(torch.zeros(2, 2, 1, 6), torch.zeros(2, 6, 2),
@@ -91,6 +101,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         topk_int8_cuda(torch.zeros(1, 4), torch.zeros(3, 4, dtype=torch.int8),
                        torch.zeros(3), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cosine_scores_cuda(torch.ones(1, 4), torch.ones(3, 4))
     x = torch.zeros(2, 2, 1, 6)
     h = torch.zeros(2, 2, 1, 2)
     with pytest.raises(ValueError, match="CUDA"):
