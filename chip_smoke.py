@@ -10,8 +10,10 @@ Phases:
      one nvcc per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of its main path, with times, the library yardstick and
-     the bound of the same work; the brand dropout's masks, as both of
-     its kernels draw them, bit for bit against the plain Philox mask;
+     the bound of the same work; the GRU forward at both of its batches
+     with each number of batch rows a block, with and without programmatic
+     dependent launch; the brand dropout's masks, as both of its kernels
+     draw them, bit for bit against the plain Philox mask;
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -280,17 +282,23 @@ def _gru_inputs(g, dev, t, b, h):
 
 
 def check_gru_train(dev):
-    """K1 at the training shape (T=64, B=8, H=1024): the backward kernel
-    against its plain version and cuDNN's GRU backward, and the forward
-    kernel's time at B=8."""
+    """K1 at the training shape (T=64, B=8, H=1024): the forward kernel
+    against its plain version, timed beside cuDNN's GRU forward; the
+    backward kernel against its plain version and cuDNN's GRU backward."""
     import torch
     from fancyrec_tpu_torch.ops.gru_scan import (
-        gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda)
+        gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda, gru_scan_ref)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     xw, w_hh, b_hh = _gru_inputs(g, dev, T, B_TRAIN, H)
     with torch.no_grad():
         out = gru_scan_cuda(xw, w_hh, b_hh)
+        fwd_err = (out - gru_scan_ref(xw, w_hh, b_hh)).abs().max().item()
+        log("gru_scan at B=%d: max |kernel - plain| = %.3g (tolerance %g)"
+            % (B_TRAIN, fwd_err, K1_TOL))
+        if not math.isfinite(fwd_err) or fwd_err > K1_TOL:
+            fail("gru_scan kernel disagrees with its plain version at B=%d"
+                 % B_TRAIN)
         h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
         dout = torch.randn(out.shape, generator=g, device=dev)
         dxw_k, danp_k = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
@@ -307,7 +315,11 @@ def check_gru_train(dev):
                      20)
         plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xw, h_prev, dout, w_hh,
                                                     b_hh), 3)
-        fwd_ms = cuda_ms(lambda: gru_scan_cuda(xw, w_hh, b_hh), 20)
+        fwd = {"ms": cuda_ms(lambda: gru_scan_cuda(xw, w_hh, b_hh), 20),
+               "plain_ms": cuda_ms(lambda: gru_scan_ref(xw, w_hh, b_hh), 3),
+               **roofline(4 * (xw.numel() + w_hh.numel() + b_hh.numel()
+                               + out.numel()),
+                          2 * (T - 1) * 2 * B_TRAIN * 3 * H * H, F32_FLOPS)}
     # yardstick: the backward of cuDNN's bidirectional GRU with the same
     # recurrent weights; it also forms the input projection's and the
     # weights' grads, which the kernel leaves to one einsum outside it
@@ -318,14 +330,19 @@ def check_gru_train(dev):
             getattr(rnn, "bias_hh_" + sfx).copy_(b_hh[d])
     x = torch.randn(T, B_TRAIN, D_IN, generator=g, device=dev,
                     requires_grad=True)
+    with torch.no_grad():      # cuDNN's forward, input projection included
+        fwd["library_ms"] = cuda_ms(lambda: rnn(x), 20)
     y = rnn(x)[0]
     dy = torch.randn(y.shape, generator=g, device=dev)
     params = [x] + list(rnn.parameters())
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         y, params, dy, retain_graph=True), 20)
     log("gru_scan_bwd: kernel %.3f ms, plain %.3f ms, cuDNN GRU backward "
-        "%.3f ms; gru_scan forward at B=%d: %.3f ms"
-        % (ms, plain_ms, library_ms, B_TRAIN, fwd_ms))
+        "%.3f ms" % (ms, plain_ms, library_ms))
+    log("gru_scan at B=%d: kernel %.3f ms, plain %.3f ms, cuDNN GRU forward "
+        "%.3f ms, bound %.4f ms (%s)" % (B_TRAIN, fwd["ms"], fwd["plain_ms"],
+                                         fwd["library_ms"], fwd["bound_ms"],
+                                         fwd["bound_by"]))
     # gate recompute and carry contraction, each B x 3H x H a direction and
     # step; h_{-1} = 0 makes the t=0 recompute a zero product, and the carry
     # past t=0 is not formed
@@ -337,7 +354,67 @@ def check_gru_train(dev):
             "replaces": "fancyrec_tpu/ops/gru_scan.py:211",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roofline(nbytes, ops, F32_FLOPS),
-            "library_ms": library_ms}, fwd_ms
+            "library_ms": library_ms}, fwd
+
+
+GRU_ROWS = (8, 16, 32)      # the forward kernel's batch rows a block
+
+
+def gru_fwd_forced(xw, w_hh, b_hh, rows, pdl=True):
+    """The forward kernel with its rows a block forced (and programmatic
+    dependent launch on or off), through its C entry point; not counted as
+    a launch of the wrapper."""
+    import ctypes
+    import torch
+    from fancyrec_tpu_torch.ops import _build
+
+    fn = _build.load("gru_scan").gru_scan_fwd_rows
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    t, _, b, g3 = xw.shape
+    w = w_hh.to(xw.dtype).contiguous()
+    bias = b_hh.float().contiguous()
+    out = torch.empty((t, 2, b, g3 // 3), dtype=xw.dtype, device=xw.device)
+    err = fn(xw.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             t, b, g3 // 3, int(xw.dtype == torch.bfloat16), rows, int(pdl),
+             torch.cuda.current_stream(xw.device).cuda_stream)
+    if err:
+        raise RuntimeError("gru_scan_fwd_rows(rows=%d, pdl=%d) failed: CUDA "
+                           "error %d" % (rows, pdl, err))
+    return out
+
+
+def sweep_gru_rows(dev):
+    """The forward kernel at each number of rows a block at both main-path
+    batches (T=64, H=1024; B=8 and B=128), with programmatic dependent
+    launch of the steps and with plain launches: time and agreement with
+    the plain version, beside the launcher's own pick."""
+    import torch
+    from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda, gru_scan_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for b in (B_TRAIN, B_ENC):
+        xw, w_hh, b_hh = _gru_inputs(g, dev, T, b, H)
+        with torch.no_grad():
+            want = gru_scan_ref(xw, w_hh, b_hh)
+            cells = []
+            for rows in GRU_ROWS:
+                ms = []
+                for pdl in (True, False):
+                    err = (gru_fwd_forced(xw, w_hh, b_hh, rows, pdl)
+                           - want).abs().max().item()
+                    if not err <= K1_TOL:
+                        fail("gru_scan rows=%d pdl=%d at B=%d: max err %.3g "
+                             "> %g" % (rows, pdl, b, err, K1_TOL))
+                    ms.append(cuda_ms(lambda: gru_fwd_forced(
+                        xw, w_hh, b_hh, rows, pdl), 20))
+                cells.append("R=%d %.3f ms (plain launches %.3f)"
+                             % (rows, ms[0], ms[1]))
+            picked = uncounted(lambda: cuda_ms(
+                lambda: gru_scan_cuda(xw, w_hh, b_hh), 20))
+        log("gru_scan at B=%d by rows a block (max err within %g): %s; as "
+            "picked %.3f ms" % (b, K1_TOL, ", ".join(cells), picked))
 
 
 def check_aspect_dropout(dev):
@@ -447,19 +524,36 @@ def check_edges(dev):
         quantize_rows_int8, topk_int8_cuda, topk_int8_ref)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    # the forward: B across the row-group sizes 8, 16 and 32, H not a
+    # multiple of 4 (the scalar path), of the 8 units a round or of the
+    # 64-vector stage; each shape as the launcher picks and with each
+    # number of rows a block forced, with and without programmatic
+    # dependent launch.
     # bf16: the two differ where a float32 sum-order difference crosses a
     # bf16 rounding boundary, one bf16 ulp of h (2^-8 relative)
     for t, b, h, dt, tol in ((5, 3, 40, torch.float32, K1_TOL),
                              (3, 130, 1000, torch.float32, K1_TOL),
-                             (4, 7, 64, torch.bfloat16, 2e-2)):
+                             (3, 1, 64, torch.float32, K1_TOL),
+                             (3, 9, 300, torch.float32, K1_TOL),
+                             (3, 17, 128, torch.float32, K1_TOL),
+                             (3, 33, 96, torch.float32, K1_TOL),
+                             (4, 11, 37, torch.float32, K1_TOL),
+                             (4, 7, 64, torch.bfloat16, 2e-2),
+                             (3, 9, 64, torch.bfloat16, 2e-2),
+                             (3, 20, 40, torch.bfloat16, 2e-2),
+                             (3, 5, 37, torch.bfloat16, 2e-2)):
         xw = torch.randn(t, 2, b, 3 * h, generator=g, device=dev).to(dt)
         w = torch.randn(2, 3 * h, h, generator=g, device=dev) / math.sqrt(h)
         bias = torch.randn(2, 3 * h, generator=g, device=dev) * 0.1
-        err = (gru_scan_cuda(xw, w, bias).float()
-               - gru_scan_ref(xw, w, bias).float()).abs().max().item()
-        if not err <= tol:
-            fail("gru_scan T=%d B=%d H=%d %s: max err %.3g > %g"
-                 % (t, b, h, dt, err, tol))
+        want = gru_scan_ref(xw, w, bias).float()
+        runs = [("picked", gru_scan_cuda(xw, w, bias))] + [
+            ("rows=%d pdl=%d" % (r, p), gru_fwd_forced(xw, w, bias, r, p))
+            for r in GRU_ROWS for p in (True, False)]
+        for how, got in runs:
+            err = (got.float() - want).abs().max().item()
+            if not err <= tol:
+                fail("gru_scan T=%d B=%d H=%d %s %s: max err %.3g > %g"
+                     % (t, b, h, dt, how, err, tol))
     # the backward: ragged row groups and unit tiles, bf16, one step
     for t, b, h, dt, tol in ((5, 3, 40, torch.float32, K1B_TOL),
                              (4, 11, 37, torch.float32, K1B_TOL),
@@ -550,6 +644,28 @@ def uncounted(fn):
     finally:
         for name, w in _wrappers().items():
             w.launches = saved[name]
+
+
+def ptxas_lines(report):
+    """(kernel, line) for each register and spill line of a ptxas -v
+    report, the kernel's name demangled where c++filt is found."""
+    fn, pairs = "?", []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            pairs.append((fn, line.split(":", 1)[-1].strip()
+                          if line.startswith("ptxas") else line.strip()))
+    if shutil.which("c++filt"):
+        names = sorted({fn for fn, _ in pairs})
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout.split("\n")
+        if len(out) >= len(names):
+            full = dict(zip(names, out))
+            pairs = [(full[fn].replace("(anonymous namespace)::", "")
+                      .split("(")[0].replace("void ", ""), line)
+                     for fn, line in pairs]
+    return pairs
 
 
 def roofline(nbytes, ops, peak):
@@ -843,12 +959,25 @@ def _kernel_group(name):
     return "other (elementwise, reductions, copies, optimizer)"
 
 
+def _union_ms(spans):
+    """The length of the union of (start, end) intervals in microseconds,
+    in ms."""
+    total, reach = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total / 1e3
+
+
 def profile_update(root, dev):
     """Phase 5b: where one update's device time goes at bin/instance.sh's
     shapes (8 microbatches of 8, every dropout on): the step's time on the
-    host clock, then the same step under torch.profiler, its kernels'
-    device time summed by kernel and by group, and the device's busy share
-    (kernel time over the unprofiled step time)."""
+    host clock, then the same step under torch.profiler: device time by
+    group and the device's busy share (busy time over the unprofiled step
+    time), each the union of its kernels' intervals, since the K1 forward's
+    steps overlap under programmatic dependent launch and a sum would count
+    the overlap twice; and the 12 largest kernels by summed time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -883,21 +1012,26 @@ def profile_update(root, dev):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    spans = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and e.time_range.end > e.time_range.start):
+            spans.setdefault(_kernel_group(e.name), []).append(
+                (e.time_range.start, e.time_range.end))
+    total = _union_ms([iv for ivs in spans.values() for iv in ivs])
+    summed = sum(e.self_device_time_total for e in kernels) / 1e3
     steady = min(step_ms[1:])
     log("one update (%d microbatches of %d): %.1f ms on the host clock "
-        "(runs %s); %d kernel launches, device kernel time %.1f ms, busy "
-        "share %.3f" % (ACCUM, B_TRAIN, steady,
-                        ", ".join("%.1f" % t for t in step_ms),
-                        sum(e.count for e in kernels), total,
-                        total / steady if total else float("nan")))
+        "(runs %s); %d kernel launches, device busy %.1f ms (kernel times "
+        "summed: %.1f ms), busy share %.3f"
+        % (ACCUM, B_TRAIN, steady, ", ".join("%.1f" % t for t in step_ms),
+           sum(e.count for e in kernels), total, summed,
+           total / steady if total else float("nan")))
     if not kernels:
         log("torch.profiler recorded no device time: breakdown not measured")
         return
-    groups = {}
-    for e in kernels:
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    groups = {g: _union_ms(ivs) for g, ivs in spans.items()}
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log("  %-52s %8.2f ms  %5.1f%%" % (g, ms, 100 * ms / total))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
@@ -1061,12 +1195,12 @@ def main():
                             "cosine_scores"])
     log("kernels built in %.1f s" % (time.time() - t0))
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log("%s ptxas: %s" % (name, line.strip()))
+        for fn, line in ptxas_lines(rep):
+            log("%s ptxas: %s: %s" % (name, fn, line))
 
     # 3. kernels vs their plain versions
-    gru_bwd, fwd_b8_ms = check_gru_train(dev)
+    gru_bwd, fwd_b8 = check_gru_train(dev)
+    sweep_gru_rows(dev)
     kernels = ([check_gru(dev), check_topk(dev), gru_bwd]
                + check_aspect_dropout(dev) + [check_cosine(dev)])
     check_edges(dev)
@@ -1101,8 +1235,9 @@ def main():
         evaluation = tester_path(root, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log("gru_scan forward at the training batch (B=%d): %.3f ms; launches on "
-        "the training path: %d" % (B_TRAIN, fwd_b8_ms, training["gru_scan"]))
+    log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
+        "forward %.3f ms); launches on the training path: %d"
+        % (B_TRAIN, fwd_b8["ms"], fwd_b8["library_ms"], training["gru_scan"]))
     paths = {"gru_scan": serving, "topk_int8": serving,
              "cosine_scores": evaluation}
     for k in kernels:

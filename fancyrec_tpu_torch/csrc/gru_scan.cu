@@ -16,46 +16,55 @@
 // Gate math and the dot products accumulate in float32; h is stored in the
 // activation type, as the TPU kernel does.
 //
-// Design. The TPU kernel keeps h in VMEM across a sequential (batch, T)
-// grid and all of W_hh resident; neither carries over to Hopper, whose
-// blocks run in no order and whose 227 KB of shared memory cannot hold the
-// 25.2 MB of float32 W_hh at H = 1024. Here the host launches one kernel
-// per time step. Each block owns a tile of BM batch rows x BN hidden units
-// of one direction, computes the three gate products h_{t-1} . W_hh[g*H+j]
-// as a register-tiled SGEMM over H, applies the gates in the epilogue and
-// writes h_t into `out`, from which the next step reads it. W_hh stays hot
-// in the 50 MB L2 across the T launches. Each thread holds 8 rows x 2
-// units x 3 gates, read per k as two float4 and three float2 shared loads
-// (5 loads per 48 FMAs), and the next K-stage's global loads are held in
-// registers while the current stage computes.
+// Forward design. The TPU kernel keeps h in VMEM across a sequential
+// (batch, T) grid with all of W_hh resident; neither carries over to
+// Hopper, whose blocks run in no order and whose 227 KB of shared memory
+// cannot hold the 25.2 MB of float32 W_hh at H = 1024. The host launches
+// one kernel per time step; step 0 forms no product (h0 = 0). A block owns
+// R batch rows of one direction (R = 8, 16 or 32, picked from B) and a
+// span of hidden units. It stages h_{t-1} of its R rows in shared memory
+// once, as float: R x H x 4 bytes, 32-128 KB at H = 1024. Each of its 8
+// warps takes one hidden unit j at a time: its lanes
+// walk k with 16-byte loads of W_hh's three gate rows of j (512 B a warp
+// instruction, coalesced) and 16-byte shared loads of the R rows of h
+// (conflict-free), into 3 x R float32 sums a lane. A reduce-scatter of
+// shuffles in a fixed order leaves row i's three sums in lane group i
+// (31 shuffles for 32 sums, against 160 for a full butterfly), whose first
+// lane applies the gates and writes out[t, d, b0 + i, j]; it loads that
+// row's x and b_hh values for j as the unit starts, so their latency hides
+// behind the products. No atomics: a call gives the same bits run to run.
 //
-// Bound on an H100 at the serving shape (T=64, B=128, H=1024, float32):
-// 2 * (T-1) * 2 * B * 3H * H = 101 GFLOP of float32 FMA work, no tensor
-// cores (the port is float32 end to end and TF32 would change results),
-// against 67 TFLOP/s: about 1.5 ms. The bytes (xw read once, out written
-// once, W_hh once: 0.29 GB, 0.09 ms) do not bound it. So the kernel is
-// operation-bound, and this simple version's limit is the issue rate of
-// the FMA pipes and the shared-memory loads feeding them.
+// What limited the register-tiled SGEMM this replaces was latency: at
+// B = 8, 64 blocks of 4 warps (fewer than half the SMs, one warp a
+// scheduler), 64 K-stages each with two barriers and one stage of loads in
+// flight, and a 64-row tile of which 56 rows were zeros; its time a step
+// hardly moved from B = 8 to B = 128. Here every SM has work at B = 8 (256
+// blocks of 8 warps at H = 1024), a block meets one barrier a step, and the
+// loads of W_hh for the next stage (also across the end of one unit and
+// the start of the next) are in flight in registers while the current
+// stage is multiplied; the first are issued before h is staged. Steps
+// 1.. are launched with programmatic dependent launch: a step's blocks
+// start as the previous step's last blocks run, issue their W_hh loads,
+// and wait (griddepcontrol.wait) only before they read h.
+//
+// Bound on an H100 (float32 FMA at 67 TFLOP/s; no tensor cores, since the
+// port is float32 end to end and TF32 would change results): 2 * (T-1) * 2
+// * B * 3H * H operations, 101 GFLOP or 1.514 ms at T = 64, B = 128,
+// H = 1024 (serving, evaluation), 6.3 GFLOP or 0.095 ms at B = 8
+// (training). The device-memory bytes (xw and out once, W_hh once) take
+// 0.09 ms and 0.01 ms. Within a step W_hh stays in the 50 MB L2, and each
+// row group of a direction reads its half once: 25.2 MB x ceil(B / R) of
+// L2 reads a step (25.2 MB at B = 8, R = 8; 101 MB at B = 128, R = 32),
+// plus h staged once a block. At B = 8 a step is that L2 stream; at
+// B = 128 the FMA pipes and the shared-memory loads feeding them (one
+// 16-byte load per 12 FMAs a lane).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BM = 64;       // batch rows per block
-constexpr int BN = 32;       // hidden units per block (each has 3 gates)
-constexpr int BK = 16;       // depth of one shared-memory stage
-constexpr int TM = 8;        // batch rows per thread (two float4 loads)
-constexpr int TN = 2;        // hidden units per thread (a float2 per gate)
-constexpr int TX = BN / TN;  // 16 threads along units
-constexpr int THREADS = TX * (BM / TM);          // 128
-constexpr int HLD = BM * BK / THREADS;           // h elements a thread stages
-constexpr int WLD = 3 * BN * BK / THREADS;       // W_hh elements a thread stages
-// padded rows: +4 keeps float4 alignment of the h tile, +2 keeps float2
-// alignment of the W tile, and both spread the stores over the banks
-constexpr int HS = BM + 4;
-constexpr int WS = BN + 2;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -74,128 +83,369 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// One K-stage of h_{t-1} (BM x BK) and of the three gate row blocks of
-// W_hh (3 x BN x BK) into registers; zero outside B, H.
-template <typename T>
-__device__ __forceinline__ void load_stage(const T* __restrict__ hprev,
-                                           const T* __restrict__ w, int b0,
-                                           int j0, int k0, int B, int H,
-                                           float (&hr)[HLD],
-                                           float (&wr)[WLD]) {
+constexpr int FWD_WARPS = 8;                  // warps of a forward block
+constexpr int FWD_THREADS = 32 * FWD_WARPS;   // 256
+constexpr int FWD_DEPTH = 2;                  // vectors a lane loads per gate
+                                              // row and stage
+
+// N consecutive values of T in one load: 16 bytes on the vector path, one
+// value where W_hh's rows are not 16-byte aligned (H % N != 0)
+template <typename T, int N> struct Vec;
+template <> struct Vec<float, 4> { using raw = float4; };
+template <> struct Vec<__nv_bfloat16, 8> { using raw = uint4; };
+template <typename T> struct Vec<T, 1> { using raw = T; };
+
+__device__ __forceinline__ void unpack(const float4& r, float (&f)[4]) {
+  f[0] = r.x;
+  f[1] = r.y;
+  f[2] = r.z;
+  f[3] = r.w;
+}
+// eight bf16, low half of each word first; a bf16 is the top 16 bits of
+// the float it widens to
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int q = 0; q < HLD; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int b = b0 + e / BK, k = k0 + e % BK;
-    hr[q] = (b < B && k < H) ? to_f(hprev[(size_t)b * H + k]) : 0.0f;
+  for (int q = 0; q < 4; ++q) {
+    f[2 * q] = __uint_as_float(w[q] << 16);
+    f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
   }
+}
+__device__ __forceinline__ void unpack(float r, float (&f)[1]) { f[0] = r; }
+__device__ __forceinline__ void unpack(__nv_bfloat16 r, float (&f)[1]) {
+  f[0] = __bfloat162float(r);
+}
+
+template <int N>
+__device__ __forceinline__ void load_h(const float* p, float (&f)[N]) {
+  if constexpr (N == 1) {
+    f[0] = *p;
+  } else {
 #pragma unroll
-  for (int q = 0; q < WLD; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int g = e / (BN * BK), rem = e % (BN * BK);
-    const int j = j0 + rem / BK, k = k0 + rem % BK;
-    wr[q] = (j < H && k < H) ? to_f(w[((size_t)g * H + j) * H + k]) : 0.0f;
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(p + 4 * q);
+      f[4 * q] = a.x;
+      f[4 * q + 1] = a.y;
+      f[4 * q + 2] = a.z;
+      f[4 * q + 3] = a.w;
+    }
   }
 }
 
+template <int N>
+__device__ __forceinline__ void store_h(float* p, const float (&f)[N]) {
+  if constexpr (N == 1) {
+    *p = f[0];
+  } else {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      *reinterpret_cast<float4*>(p + 4 * q) =
+          make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+  }
+}
+
+// One reduce-scatter stage with HALF = R >> (s + 1) at stage s (offset
+// 16 >> s): each lane hands the half of v[0, 2 HALF) that its offset bit
+// does not select to the partner lane and adds the partner's copy of the
+// half it keeps into v[0, HALF); then the next stage. Recursion, so that
+// every index is a constant and v stays in registers.
+template <int R, int HALF>
+__device__ __forceinline__ void scatter_rows(float (&v)[R], int lane) {
+  if constexpr (HALF >= 1) {
+    constexpr int OFF = 32 * HALF / R;
+    const bool up = lane & OFF;
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) {
+      const float send = up ? v[k] : v[k + HALF];
+      const float keep = up ? v[k + HALF] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    scatter_rows<R, HALF / 2>(v, lane);
+  }
+}
+
+// Sums each of the R values over the warp's lanes. Lane l returns the sum
+// of v[l / (32 / R)]: log2 R reduce-scatter stages (offsets 16, 8, ...),
+// then a butterfly over the lower offsets adds within each group of
+// 32 / R lanes, whose members end with the same bits. Clobbers v.
+template <int R>
+__device__ __forceinline__ float reduce_rows(float (&v)[R], int lane) {
+  scatter_rows<R, R / 2>(v, lane);
+  float sum = v[0];
+#pragma unroll
+  for (int off = 16 / R; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// xv, bv = x_r, x_z, x_n of row b (x points at its xw row) and b_hr,
+// b_hz, b_hn, for unit j
 template <typename T>
-__global__ void __launch_bounds__(THREADS) gru_step_kernel(
+__device__ __forceinline__ void load_gates(const T* x, const float* bh,
+                                           int j, int H, float* xv,
+                                           float* bv) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    xv[g] = to_f(x[g * H + j]);
+    bv[g] = bh[g * H + j];
+  }
+}
+
+// h' from the gate inputs, the three products h W_h*^T and h
+__device__ __forceinline__ float gru_cell(const float* xv, const float* bv,
+                                          float pr, float pz, float pn,
+                                          float h) {
+  const float r = sigmoidf(xv[0] + (pr + bv[0]));
+  const float z = sigmoidf(xv[1] + (pz + bv[1]));
+  const float nn = tanhf(xv[2] + r * (pn + bv[2]));
+  return (1.0f - z) * nn + z * h;
+}
+
+// Programmatic dependent launch: step t + 1's blocks may start while step
+// t's last blocks run; they load W_hh, then wait here for step t to end
+// (and its writes to be visible) before reading h_t. Both are no-ops in a
+// kernel launched without the attribute.
+__device__ __forceinline__ void let_next_step_start() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+__device__ __forceinline__ void wait_for_previous_step() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// grid (ceil(H / span), ceil(B / R), 2), FWD_THREADS threads, dynamic
+// shared memory R * HP floats (HP = H rounded up to 4). A block takes units
+// [blockIdx.x * span, + span) (span a multiple of FWD_WARPS); warp w takes
+// unit w of each round of FWD_WARPS units. N values of a gate row a load
+// (N divides H on the vector path).
+template <typename T, int R, int N>
+__global__ void __launch_bounds__(FWD_THREADS) gru_step_kernel_rows(
     const T* __restrict__ xw, const T* __restrict__ w_hh,
     const float* __restrict__ b_hh, T* __restrict__ out, int t, int B,
-    int H) {
-  __shared__ __align__(16) float hs[BK][HS];       // h_{t-1}, k-major
-  __shared__ __align__(16) float ws[3][BK][WS];    // gate rows, k-major
-
-  const int d = blockIdx.z;              // direction
-  const int b0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % TX;       // units j0 + tx*TN + n
-  const int ty = threadIdx.x / TX;       // rows  b0 + ty*TM + i
+    int H, int span) {
+  using Raw = typename Vec<T, N>::raw;
+  constexpr int LANES = 32 / R;               // lanes that end with a row
+  constexpr int CH = 32 * FWD_DEPTH;          // vectors of a row a stage
+  extern __shared__ __align__(16) float hs[];  // [R][HP]: h_{t-1}, float
+  const int HP = (H + 3) & ~3;
+  const int d = blockIdx.z;
+  const int b0 = blockIdx.y * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t G = 3 * (size_t)H;
+  const size_t slab = (size_t)t * 2 + d;      // (t, d) slab index
+  const int j0 = static_cast<int>(blockIdx.x) * span;
+  const int j_end = min(H, j0 + span);
+  const int rounds = j0 + warp < j_end
+                         ? (j_end - j0 - warp + FWD_WARPS - 1) / FWD_WARPS
+                         : 0;
+  const int row = lane / LANES;
+  const int b = b0 + row;
+  const bool writes = lane % LANES == 0 && b < B;
+  const T* x = xw + (slab * B + b) * G;       // read only where `writes`
+  T* o = out + (slab * B + b) * H;
+  const float* bh = b_hh + (size_t)d * G;
+  float xv[3], bv[3];                         // a unit's gate inputs
 
-  float acc[3][TM][TN];
+  let_next_step_start();
+  if (t == 0) {                               // h_{-1} = 0: no product
+    wait_for_previous_step();
+    if (writes)
+      for (int q = 0; q < rounds; ++q) {
+        const int j = j0 + q * FWD_WARPS + warp;
+        load_gates(x, bh, j, H, xv, bv);
+        o[j] = from_f<T>(gru_cell(xv, bv, 0.0f, 0.0f, 0.0f, 0.0f));
+      }
+    return;
+  }
+
+  const T* w = w_hh + (size_t)d * G * H;
+  const int HV = H / N;                       // vectors a row of h or W_hh
+  const int nch = (HV + CH - 1) / CH;         // stages a unit
+  const int total = rounds * nch;             // stages of this warp
+
+  // stage `it`'s W_hh vectors: round it / nch, vectors (it % nch) * CH + ..
+  // (those past HV are left unset: the products skip them)
+  auto fetch = [&](Raw(&buf)[FWD_DEPTH][3], int it) {
+    const int q = it / nch, c = it - q * nch;
+    const int j = j0 + q * FWD_WARPS + warp;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const T* wrow = w + ((size_t)g * H + j) * H;
+#pragma unroll
+      for (int s = 0; s < FWD_DEPTH; ++s) {
+        const int v = (c * FWD_DEPTH + s) * 32 + lane;
+        if (v < HV)
+          buf[s][g] = *reinterpret_cast<const Raw*>(wrow + (size_t)v * N);
+      }
+    }
+  };
+
+  Raw cur[FWD_DEPTH][3], nxt[FWD_DEPTH][3];
+  if (total > 0) fetch(cur, 0);               // in flight while h is staged
+  wait_for_previous_step();
+  // h_{t-1} = out[t - 1, d] of the block's rows, N values a load; rows past
+  // B are zeros (columns past H are never read)
+  const T* hp = out + (slab - 2) * B * H;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < R * HV; e += FWD_THREADS) {
+    const int i = e / HV, v = e - i * HV;
+    float f[N];
+    if (b0 + i < B) {
+      unpack(*reinterpret_cast<const Raw*>(hp + (size_t)(b0 + i) * H +
+                                           (size_t)v * N),
+             f);
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) f[n] = 0.0f;
+    }
+    store_h<N>(hs + i * HP + v * N, f);
+  }
+  __syncthreads();
+
+  float acc[3][R];
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[g][i][n] = 0.0f;
+    for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
 
-  const T* hprev =
-      t > 0 ? out + ((size_t)(t - 1) * 2 + d) * B * H : nullptr;
-  if (t > 0) {                           // h0 = 0: step 0 has no product
-    const T* w = w_hh + (size_t)d * G * H;
-    float hr[HLD], wr[WLD];
-    load_stage(hprev, w, b0, j0, 0, B, H, hr, wr);
-    for (int k0 = 0; k0 < H; k0 += BK) {
+  for (int it = 0; it < total; ++it) {
+    const int q = it / nch, c = it - q * nch;
+    const int j = j0 + q * FWD_WARPS + warp;
+    if (it + 1 < total) fetch(nxt, it + 1);
+    if (c == 0 && writes) load_gates(x, bh, j, H, xv, bv);
 #pragma unroll
-      for (int q = 0; q < HLD; ++q) {
-        const int e = threadIdx.x + q * THREADS;
-        hs[e % BK][e / BK] = hr[q];
-      }
+    for (int s = 0; s < FWD_DEPTH; ++s) {
+      const int v = (c * FWD_DEPTH + s) * 32 + lane;
+      if (v < HV) {
+        float wv[3][N];
 #pragma unroll
-      for (int q = 0; q < WLD; ++q) {
-        const int e = threadIdx.x + q * THREADS;
-        const int rem = e % (BN * BK);
-        ws[e / (BN * BK)][rem % BK][rem / BK] = wr[q];
-      }
-      __syncthreads();
-      // the next stage's global loads are in flight during these FMAs
-      if (k0 + BK < H) load_stage(hprev, w, b0, j0, k0 + BK, B, H, hr, wr);
+        for (int g = 0; g < 3; ++g) unpack(cur[s][g], wv[g]);
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 h0 = *reinterpret_cast<const float4*>(&hs[kk][ty * TM]);
-        const float4 h1 =
-            *reinterpret_cast<const float4*>(&hs[kk][ty * TM + 4]);
-        const float hv[TM] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        for (int i = 0; i < R; ++i) {
+          float hv[N];
+          load_h<N>(hs + i * HP + v * N, hv);
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          const float2 wv =
-              *reinterpret_cast<const float2*>(&ws[g][kk][tx * TN]);
+          for (int g = 0; g < 3; ++g)
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            acc[g][i][0] = fmaf(hv[i], wv.x, acc[g][i][0]);
-            acc[g][i][1] = fmaf(hv[i], wv.y, acc[g][i][1]);
-          }
+            for (int n = 0; n < N; ++n)
+              acc[g][i] = fmaf(hv[n], wv[g][n], acc[g][i]);
         }
       }
-      __syncthreads();
     }
-  }
-
-  const T* x_t = xw + ((size_t)t * 2 + d) * B * G;
-  T* out_t = out + ((size_t)t * 2 + d) * B * H;
-  const float* bh = b_hh + (size_t)d * G;
+    if (c == nch - 1) {                       // unit j is summed
+      float sum[3];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int b = b0 + ty * TM + i;
-    if (b >= B) continue;
+      for (int g = 0; g < 3; ++g) {
+        sum[g] = reduce_rows<R>(acc[g], lane);
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const int j = j0 + tx * TN + n;
-      if (j >= H) continue;
-      const T* x = x_t + (size_t)b * G;
-      const float r = sigmoidf(to_f(x[j]) + (acc[0][i][n] + bh[j]));
-      const float z = sigmoidf(to_f(x[H + j]) + (acc[1][i][n] + bh[H + j]));
-      const float nn =
-          tanhf(to_f(x[2 * H + j]) + r * (acc[2][i][n] + bh[2 * H + j]));
-      const float hp = t > 0 ? to_f(hprev[(size_t)b * H + j]) : 0.0f;
-      out_t[(size_t)b * H + j] = from_f<T>((1.0f - z) * nn + z * hp);
+        for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
+      }
+      if (writes)
+        o[j] = from_f<T>(gru_cell(xv, bv, sum[0], sum[1], sum[2],
+                                  hs[row * HP + j]));
     }
+#pragma unroll
+    for (int s = 0; s < FWD_DEPTH; ++s)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) cur[s][g] = nxt[s][g];
   }
 }
 
-template <typename T>
-int launch_all(const void* xw, const void* w_hh, const void* b_hh, void* out,
-               int T_, int B, int H, cudaStream_t stream) {
-  const dim3 grid((H + BN - 1) / BN, (B + BM - 1) / BM, 2);
+// The T step launches with R rows a block, steps 1.. with programmatic
+// dependent launch where `pdl`. A block takes enough rounds of units that
+// all blocks are resident at once (one wave), which stages h the fewest
+// times for the same rounds a warp.
+template <typename T, int R, int N>
+int launch_rows(const void* xw, const void* w_hh, const void* b_hh,
+                void* out, int T_, int B, int H, bool pdl,
+                cudaStream_t stream) {
+  const auto kernel = gru_step_kernel_rows<T, R, N>;
+  const size_t smem = sizeof(float) * R * (size_t)((H + 3) & ~3);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        FWD_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int groups = (B + R - 1) / R;
+  const long rounds = (H + FWD_WARPS - 1) / FWD_WARPS;   // of all H units
+  const long slots = (long)sms * per_sm;
+  const int span =
+      static_cast<int>((rounds * groups * 2 + slots - 1) / slots) * FWD_WARPS;
+  const dim3 grid((H + span - 1) / span, groups, 2);
+  const T* x = static_cast<const T*>(xw);
+  const T* w = static_cast<const T*>(w_hh);
+  const float* bias = static_cast<const float*>(b_hh);
+  T* o = static_cast<T*>(out);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FWD_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   for (int t = 0; t < T_; ++t) {
-    gru_step_kernel<T><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(xw), static_cast<const T*>(w_hh),
-        static_cast<const float*>(b_hh), static_cast<T*>(out), t, B, H);
-    const cudaError_t err = cudaGetLastError();
+    // step 0 waits for all earlier work on the stream, as xw's producer
+    if (pdl && t > 0) {
+      err = cudaLaunchKernelEx(&cfg, kernel, x, w, bias, o, t, B, H, span);
+    } else {
+      kernel<<<grid, FWD_THREADS, smem, stream>>>(x, w, bias, o, t, B, H,
+                                                  span);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// rows 0 picks R from B and H; 8, 16 or 32 forces it.
+template <typename T, int N>
+int launch_fwd(const void* xw, const void* w_hh, const void* b_hh, void* out,
+               int T_, int B, int H, int rows, bool pdl,
+               cudaStream_t stream) {
+  if (rows == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the fewest rows that hold B, up to 32: W_hh is read ceil(B / R)
+    // times a step, while a larger R leaves fewer warps an SM (at
+    // H = 1024, 16 at R = 8, 8 at R = 32); PERF.md has the time of each
+    rows = B <= 8 ? 8 : B <= 16 ? 16 : 32;
+    // the staged rows must fit a block's shared memory (R = 8 holds H up
+    // to 7,264; past that the launch is refused)
+    while (rows > 8 && sizeof(float) * rows * (size_t)((H + 3) & ~3) >
+                           static_cast<size_t>(optin))
+      rows /= 2;
+  }
+  // 16-byte loads need 16-byte aligned rows
+  const bool vec = H % N == 0 &&
+                   reinterpret_cast<uintptr_t>(w_hh) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+#define FWD_LAUNCH(R, V)                                             \
+  if (rows == R)                                                     \
+  return launch_rows<T, R, V>(xw, w_hh, b_hh, out, T_, B, H, pdl, stream)
+  if (vec) {
+    FWD_LAUNCH(8, N);
+    FWD_LAUNCH(16, N);
+    FWD_LAUNCH(32, N);
+  } else {
+    FWD_LAUNCH(8, 1);
+    FWD_LAUNCH(16, 1);
+    FWD_LAUNCH(32, 1);
+  }
+#undef FWD_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -442,9 +692,29 @@ extern "C" int gru_scan_fwd(const void* xw, const void* w_hh,
                             const void* b_hh, void* out, int T_, int B, int H,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_all<float>(xw, w_hh, b_hh, out, T_, B, H, s);
+  if (dtype == 0)
+    return launch_fwd<float, 4>(xw, w_hh, b_hh, out, T_, B, H, 0, true, s);
   if (dtype == 1)
-    return launch_all<__nv_bfloat16>(xw, w_hh, b_hh, out, T_, B, H, s);
+    return launch_fwd<__nv_bfloat16, 8>(xw, w_hh, b_hh, out, T_, B, H, 0,
+                                        true, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// gru_scan_fwd with the choices forced, for measuring them: `rows` batch
+// rows a block (8, 16 or 32); `pdl` 1 for programmatic dependent launch of
+// steps 1.., 0 for plain launches.
+extern "C" int gru_scan_fwd_rows(const void* xw, const void* w_hh,
+                                 const void* b_hh, void* out, int T_, int B,
+                                 int H, int dtype, int rows, int pdl,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_fwd<float, 4>(xw, w_hh, b_hh, out, T_, B, H, rows,
+                                pdl != 0, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16, 8>(xw, w_hh, b_hh, out, T_, B, H, rows,
+                                        pdl != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -28,7 +28,8 @@ def _scan_inputs(seed, t=6, b=3, h=8):
     return xw, w_hh, b_hh
 
 
-@pytest.mark.parametrize("t,b,h", [(6, 3, 8), (8, 5, 16), (1, 1, 4)])
+@pytest.mark.parametrize("t,b,h", [(6, 3, 8), (8, 5, 16), (1, 1, 4),
+                                   (5, 9, 8), (3, 17, 12), (2, 33, 4)])
 def test_gru_scan_matches_pallas_interpret(t, b, h):
     xw, w_hh, b_hh = _scan_inputs(t * 100 + b, t, b, h)
     want = np.asarray(gru_scan_pallas(jnp.asarray(xw), jnp.asarray(w_hh),
