@@ -11,9 +11,14 @@ Phases:
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of its main path, with times, the library yardstick and
      the bound of the same work; the GRU forward at both of its batches
-     with each number of batch rows a block, with and without programmatic
-     dependent launch; the brand dropout's masks, as both of its kernels
-     draw them, bit for bit against the plain Philox mask;
+     and the backward at the training batch with each number of batch
+     rows a block, with and without programmatic dependent launch, and the
+     backward with each number of slices of its carry contraction (two
+     backward calls must give the same bits); the cosine at the test
+     split's 816 posts (split over D) and at 1M posts (one pass); the
+     brand dropout's masks, as both of its kernels draw them, bit for bit
+     against the plain Philox mask; edge shapes of every kernel, and an
+     int8 index 30 wide, which K3 does not take;
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -43,6 +48,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -222,24 +228,35 @@ def _cosine_err(got, want):
 def check_cosine(dev):
     """K4 at the 1M-post evaluation (51 x 1,000,000 x 1024), at the tester's
     shape (51 x N_EVAL) and at edge shapes: kernel vs plain vs the one-call
-    PyTorch cosine (cuBLAS, float32)."""
+    PyTorch cosine (cuBLAS, float32). Few posts take the D-split path
+    (`cosine_slices` > 1); two calls there give the same bits."""
     import torch
     import torch.nn.functional as F
     from fancyrec_tpu_torch.ops.similarity import (
-        cosine_scores_cuda, cosine_scores_ref)
+        _sm_count, cosine_scores_cuda, cosine_scores_ref, cosine_slices)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = _sm_count(dev)
     # edges: one brand, a ragged post tile, D not a multiple of the stage,
-    # an all-zero post row (NaN in the same column), two brand tiles
+    # an all-zero post row (NaN in the same column), two brand tiles; then
+    # the few-post shapes of the split path: the test split, one post, D
+    # within one stage (which leaves nothing to split: S = 1), a ragged
+    # post tile with a ragged last D stage
     for b, n, d, zero in ((1, 777, 130, 5), (6, 4096, 1024, 4095),
-                          (70, 1000, 33, 0), (51, 128, 1, None)):
+                          (70, 1000, 33, 0), (51, 128, 1, None),
+                          (N_BRANDS, N_EVAL, DIM, 3), (N_BRANDS, 1, DIM, None),
+                          (3, 5, 7, 1), (64, 129, 1000, 128)):
         brands, posts = _cosine_case(g, dev, b, n, d, zero)
-        err = _cosine_err(cosine_scores_cuda(brands, posts),
-                          cosine_scores_ref(brands, posts))
-        if not err <= K4_TOL:
-            fail("cosine_scores B=%d N=%d D=%d zero row %s: max err %.3g "
-                 "(NaN where the plain version has none, or > %g)"
-                 % (b, n, d, zero, err, K4_TOL))
+        got = cosine_scores_cuda(brands, posts)
+        err = _cosine_err(got, cosine_scores_ref(brands, posts))
+        same = torch.equal(torch.nan_to_num(got),
+                           torch.nan_to_num(cosine_scores_cuda(brands, posts)))
+        if not (err <= K4_TOL and same):
+            fail("cosine_scores B=%d N=%d D=%d zero row %s (%d slices): max "
+                 "err %.3g (NaN where the plain version has none, or > %g); "
+                 "two calls equal: %s" % (b, n, d, zero,
+                                          cosine_slices(b, n, d, sms), err,
+                                          K4_TOL, same))
     times = {}
     for n in (N_EVAL, N_POSTS):
         brands, posts = _cosine_case(g, dev, N_BRANDS, n, DIM)
@@ -248,27 +265,70 @@ def check_cosine(dev):
             out_p = cosine_scores_ref(brands, posts)
             torch.cuda.synchronize()
             err = _cosine_err(out_k, out_p)
-            log("cosine_scores %d x %d x %d: max |kernel - plain| = %.3g "
-                "(tolerance %g)" % (N_BRANDS, n, DIM, err, K4_TOL))
+            log("cosine_scores %d x %d x %d, %d D slices: max |kernel - "
+                "plain| = %.3g (tolerance %g)"
+                % (N_BRANDS, n, DIM, cosine_slices(N_BRANDS, n, DIM, sms),
+                   err, K4_TOL))
             if not err <= K4_TOL:
                 fail("cosine_scores kernel disagrees with its plain version")
-            times[n] = (
-                cuda_ms(lambda: cosine_scores_cuda(brands, posts), 20),
-                cuda_ms(lambda: cosine_scores_ref(brands, posts), 5),
-                cuda_ms(lambda: F.normalize(brands) @ F.normalize(posts).T,
-                        20))
-        log("cosine_scores %d x %d x %d: kernel %.4f ms, plain %.4f ms, "
-            "F.normalize @ F.normalize.T (cuBLAS) %.4f ms" % ((N_BRANDS, n, DIM)
-                                                              + times[n]))
+            # the kernel and cuBLAS in five pairs, which goes first
+            # alternating; the medians, since at few posts both calls are
+            # host-bound and the host's time spreads
+            runs = {"kernel": [], "lib": []}
+            calls = {"kernel": lambda: cosine_scores_cuda(brands, posts),
+                     "lib": lambda: F.normalize(brands) @ F.normalize(posts).T}
+            for r in range(5):
+                for name in (("kernel", "lib") if r % 2 == 0
+                             else ("lib", "kernel")):
+                    runs[name].append(cuda_ms(calls[name], 50))
+            times[n] = (statistics.median(runs["kernel"]),
+                        cuda_ms(lambda: cosine_scores_ref(brands, posts), 5),
+                        statistics.median(runs["lib"]))
+            entry = cosine_entry_ms(brands, posts)
+        log("cosine_scores %d x %d x %d: kernel %.4f ms (median of 5, %.4f "
+            "to %.4f), plain %.4f ms, F.normalize @ F.normalize.T (cuBLAS) "
+            "%.4f ms (%.4f to %.4f); the C entry alone %.4f ms"
+            % (N_BRANDS, n, DIM, times[n][0], min(runs["kernel"]),
+               max(runs["kernel"]), times[n][1], times[n][2],
+               min(runs["lib"]), max(runs["lib"]), entry))
     ms, plain_ms, library_ms = times[N_POSTS]
     ops = 2 * N_BRANDS * N_POSTS * DIM
     nbytes = 4 * (brands.numel() + posts.numel() + out_k.numel())
+    small = roofline(4 * N_BRANDS * (DIM + N_EVAL) + 4 * N_EVAL * DIM,
+                     2 * N_BRANDS * N_EVAL * DIM, F32_FLOPS)
+    log("cosine_scores %d x %d x %d: bound %.4f ms (%s)"
+        % (N_BRANDS, N_EVAL, DIM, small["bound_ms"], small["bound_by"]))
     del out_k, out_p, posts
     return {"name": "cosine_scores", "route": "cuda",
             "source": "fancyrec_tpu_torch/csrc/cosine_scores.cu",
             "replaces": "fancyrec_tpu/ops/similarity.py:108",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roofline(nbytes, ops, F32_FLOPS), "library_ms": library_ms}
+
+
+def cosine_entry_ms(brands, posts):
+    """K4's launches through its C entry on buffers made once, back to
+    back: the call without the wrapper's Python (its checks, allocations,
+    stream lookup and, for the single pass, the brands' normalization),
+    which holds the card at few posts. Not counted as a launch of the
+    wrapper."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import (
+        _cosine_fn, _sm_count, cosine_scratch_len, cosine_slices)
+
+    (b, d), n, dev = brands.shape, posts.shape[0], brands.device
+    s = cosine_slices(b, n, d, _sm_count(dev))
+    if s == 1:
+        brands = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
+    out = torch.empty((b, n), device=dev)
+    scratch = torch.empty(max(1, cosine_scratch_len(b, n, s)), device=dev)
+    args = (brands.data_ptr(), posts.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, n, d, s,
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = _cosine_fn()
+    if fn(*args):
+        fail("the cosine_scores C entry failed")
+    return cuda_ms(lambda: fn(*args), 50)
 
 
 def _gru_inputs(g, dev, t, b, h):
@@ -303,16 +363,51 @@ def check_gru_train(dev):
         dout = torch.randn(out.shape, generator=g, device=dev)
         dxw_k, danp_k = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
         dxw_p, danp_p = gru_scan_bwd_ref(xw, h_prev, dout, w_hh, b_hh)
+        again = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
         torch.cuda.synchronize()
         err = max((dxw_k - dxw_p).abs().max().item(),
                   (danp_k - danp_p).abs().max().item())
         scale = max(dxw_p.abs().max().item(), danp_p.abs().max().item())
+        same = torch.equal(dxw_k, again[0]) and torch.equal(danp_k, again[1])
         log("gru_scan_bwd: max |kernel - plain| = %.3g over dxw and danp "
-            "(|plain| max %.3g; tolerance %g)" % (err, scale, K1B_TOL))
+            "(|plain| max %.3g; tolerance %g); two calls bit-identical: %s"
+            % (err, scale, K1B_TOL, same))
         if not math.isfinite(err) or err > K1B_TOL:
             fail("gru_scan backward kernel disagrees with its plain version")
+        if not same:
+            fail("two calls of the gru_scan backward kernel differ")
         ms = cuda_ms(lambda: gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh),
                      20)
+        # rows a gate block and programmatic dependent launch, forced
+        cells = []
+        for rows in GRU_ROWS:
+            for pdl in (True, False):
+                got = gru_bwd_forced(xw, h_prev, dout, w_hh, b_hh, rows, pdl)
+                e = max((got[0] - dxw_p).abs().max().item(),
+                        (got[1] - danp_p).abs().max().item())
+                if not e <= K1B_TOL:
+                    fail("gru_scan_bwd rows=%d pdl=%d: max err %.3g > %g"
+                         % (rows, pdl, e, K1B_TOL))
+                cells.append("R=%d %s %.3f ms" % (
+                    rows, "PDL" if pdl else "plain launches",
+                    cuda_ms(lambda: gru_bwd_forced(
+                        xw, h_prev, dout, w_hh, b_hh, rows, pdl), 20)))
+        log("gru_scan_bwd at B=%d by rows a gate block (max err within %g): "
+            "%s" % (B_TRAIN, K1B_TOL, ", ".join(cells)))
+        # the carry kernel's slices of 3H, forced (0: the launcher's pick)
+        cells = []
+        for parts in (0, 1, 2, 3, 4, 5, 6, 8, 12):
+            got = gru_bwd_forced(xw, h_prev, dout, w_hh, b_hh, 0, True, parts)
+            e = max((got[0] - dxw_p).abs().max().item(),
+                    (got[1] - danp_p).abs().max().item())
+            if not e <= K1B_TOL:
+                fail("gru_scan_bwd parts=%d: max err %.3g > %g"
+                     % (parts, e, K1B_TOL))
+            cells.append("P=%s %.3f ms" % (
+                parts or "picked", cuda_ms(lambda: gru_bwd_forced(
+                    xw, h_prev, dout, w_hh, b_hh, 0, True, parts), 20)))
+        log("gru_scan_bwd at B=%d by slices of 3H a carry block: %s"
+            % (B_TRAIN, ", ".join(cells)))
         plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xw, h_prev, dout, w_hh,
                                                     b_hh), 3)
         fwd = {"ms": cuda_ms(lambda: gru_scan_cuda(xw, w_hh, b_hh), 20),
@@ -357,7 +452,7 @@ def check_gru_train(dev):
             "library_ms": library_ms}, fwd
 
 
-GRU_ROWS = (8, 16, 32)      # the forward kernel's batch rows a block
+GRU_ROWS = (8, 16, 32)      # the K1 kernels' batch rows a block
 
 
 def gru_fwd_forced(xw, w_hh, b_hh, rows, pdl=True):
@@ -383,6 +478,37 @@ def gru_fwd_forced(xw, w_hh, b_hh, rows, pdl=True):
         raise RuntimeError("gru_scan_fwd_rows(rows=%d, pdl=%d) failed: CUDA "
                            "error %d" % (rows, pdl, err))
     return out
+
+
+def gru_bwd_forced(xw, h_prev, dout, w_hh, b_hh, rows, pdl=True, parts=0):
+    """The backward kernels with the gate kernel's rows a block forced (and
+    programmatic dependent launch on or off, and the carry kernel's slices
+    of 3H where `parts` > 0), through their C entry point, with the
+    wrapper's scratch; not counted as a launch of the wrapper."""
+    import ctypes
+    import torch
+    from fancyrec_tpu_torch.ops import _build
+    from fancyrec_tpu_torch.ops.gru_scan import bwd_scratch
+
+    fn = _build.load("gru_scan").gru_scan_bwd_cfg
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    t, _, b, g3 = xw.shape
+    dt, dev = xw.dtype, xw.device
+    ins = [xw.contiguous(), h_prev.to(dt).contiguous(),
+           dout.to(dt).contiguous(), w_hh.to(dt).contiguous(),
+           b_hh.float().contiguous()]
+    dxw = torch.empty_like(ins[0])
+    danp = torch.empty((t, 2, b, g3 // 3), dtype=dt, device=dev)
+    carry, da = bwd_scratch(b, g3 // 3, dev)
+    err = fn(*(x.data_ptr() for x in ins + [dxw, danp, carry, da]),
+             t, b, g3 // 3, int(dt == torch.bfloat16), rows, parts,
+             int(pdl), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("gru_scan_bwd_cfg(rows=%d, parts=%d, pdl=%d) "
+                           "failed: CUDA error %d" % (rows, parts, pdl, err))
+    return dxw, danp
 
 
 def sweep_gru_rows(dev):
@@ -554,24 +680,40 @@ def check_edges(dev):
             if not err <= tol:
                 fail("gru_scan T=%d B=%d H=%d %s %s: max err %.3g > %g"
                      % (t, b, h, dt, how, err, tol))
-    # the backward: ragged row groups and unit tiles, bf16, one step
+    # the backward: the forward's edge shapes and one step of a small H,
+    # float32 at K1B_TOL and bf16 within a bf16 ulp of the larger grads
+    # (the two round where a float32 sum-order difference crosses a bf16
+    # boundary, and the carry passes it on); each as the launcher picks
+    # and with each number of gate rows a block forced, with and without
+    # programmatic dependent launch
     for t, b, h, dt, tol in ((5, 3, 40, torch.float32, K1B_TOL),
-                             (4, 11, 37, torch.float32, K1B_TOL),
                              (3, 130, 1000, torch.float32, K1B_TOL),
+                             (3, 1, 64, torch.float32, K1B_TOL),
+                             (3, 9, 300, torch.float32, K1B_TOL),
+                             (3, 17, 128, torch.float32, K1B_TOL),
+                             (3, 33, 96, torch.float32, K1B_TOL),
+                             (4, 11, 37, torch.float32, K1B_TOL),
                              (1, 2, 16, torch.float32, K1B_TOL),
-                             (4, 7, 64, torch.bfloat16, 5e-2)):
+                             (4, 7, 64, torch.bfloat16, 5e-2),
+                             (3, 9, 64, torch.bfloat16, 5e-2),
+                             (3, 20, 40, torch.bfloat16, 5e-2),
+                             (3, 5, 37, torch.bfloat16, 5e-2)):
         xw, w, bias = _gru_inputs(g, dev, t, b, h)
         xw = xw.to(dt)
         out = gru_scan_cuda(xw, w, bias)
         h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
         dout = torch.randn(out.shape, generator=g, device=dev).to(dt)
-        got = gru_scan_bwd_cuda(xw, h_prev, dout, w, bias)
         want = gru_scan_bwd_ref(xw, h_prev, dout, w, bias)
-        err = max((x.float() - y.float()).abs().max().item()
-                  for x, y in zip(got, want))
-        if not err <= tol:
-            fail("gru_scan_bwd T=%d B=%d H=%d %s: max err %.3g > %g"
-                 % (t, b, h, dt, err, tol))
+        runs = [("picked", gru_scan_bwd_cuda(xw, h_prev, dout, w, bias))] + [
+            ("rows=%d pdl=%d" % (r, p),
+             gru_bwd_forced(xw, h_prev, dout, w, bias, r, p))
+            for r in GRU_ROWS for p in (True, False)]
+        for how, got in runs:
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, want))
+            if not err <= tol:
+                fail("gru_scan_bwd T=%d B=%d H=%d %s %s: max err %.3g > %g"
+                     % (t, b, h, dt, how, err, tol))
     # aspect dropout: aspects not a multiple of the tile, columns not a
     # multiple of 4 and past one 1024-column chunk, keep = 1 against the
     # deterministic mean
@@ -609,7 +751,47 @@ def check_edges(dev):
             fail("topk_int8 B=%d N=%d D=%d k=%d n_valid=%s differs from "
                  "the plain version" % (b, n, d, k, n_valid))
     torch.cuda.synchronize()
+    check_int8_narrow_index(dev)
     log("edge shapes: every kernel agrees with its plain version")
+
+
+def check_int8_narrow_index(dev):
+    """An int8 index 30 wide, which K3 does not take (its rows are read in
+    4-byte words): `PostIndex.query` must answer through `retrieval_topk`
+    on the card, launch no K3, and serve the posts the CPU serves."""
+    import numpy as np
+    from fancyrec_tpu_torch.io.bigfile import BigFileWriter
+    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
+    from fancyrec_tpu_torch.serving.index import PostIndex
+
+    n, d, brands = 5000, 30, 7
+    rng = np.random.default_rng(SEED)
+    work = os.path.join(HERE, "build", "chip_smoke_int8_d30")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        with BigFileWriter(work, ndims=d, delimiter="\t") as w:
+            w.write_batch(["post%05d#enc#0" % i for i in range(n)],
+                          rng.standard_normal((n, d), dtype=np.float32))
+        np.save(os.path.join(work, "brands.npy"),
+                rng.integers(0, brands, n).astype(np.int32))
+        np.save(os.path.join(work, "brand_embeddings.npy"),
+                rng.standard_normal((brands, d), dtype=np.float32))
+        with open(os.path.join(work, "index_meta.json"), "w") as f:
+            json.dump({"collection": "synthetic", "checkpoint": "",
+                       "brand_num": brands, "dim": d, "n_posts": n}, f)
+        launches = topk_int8_cuda.launches
+        vc, nc = PostIndex(work, quantize="int8", device=str(dev)).query(
+            list(range(brands)), k=TOPK)
+        vh, nh = PostIndex(work, quantize="int8", device="cpu").query(
+            list(range(brands)), k=TOPK)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if topk_int8_cuda.launches != launches:
+        fail("an int8 query at D=%d launched topk_int8" % d)
+    if nc != nh or not np.allclose(vc, vh, rtol=0, atol=K3_TOL):
+        fail("the int8 query at D=%d on the card differs from the CPU's" % d)
+    log("int8 PostIndex.query at D=%d: retrieval_topk on the card, the CPU's "
+        "posts for all %d brands" % (d, brands))
 
 
 def _wrappers():

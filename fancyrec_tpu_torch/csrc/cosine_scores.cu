@@ -2,20 +2,23 @@
 // `cosine_scores_pallas` (fancyrec_tpu/ops/similarity.py,
 // `_cosine_block_kernel`).
 //
-//   bn    (B, D) float32  brands, each row already divided by its L2 norm
-//   posts (N, D) float32  raw post embeddings
-//   ->    out (B, N) float32,
-//         out[b, n] = dot(bn[b], posts[n]) * rsqrt(sum_d posts[n, d]^2)
+//   brands (B, D) float32  brand embeddings: for the single pass bn, the
+//                          rows divided by their norms (by the caller); for
+//                          the D-split path the raw rows
+//   posts  (N, D) float32  raw post embeddings
+//   ->     out (B, N) float32,
+//          out[b, n] = dot(bn[b], posts[n]) * rsqrt(sum_d posts[n, d]^2),
+//          bn[b] = brands[b] / ||brands[b]||
 //
 // Each post row is normalised on the fly: its sum of squares is taken while
 // the row streams through, and the scale is applied in the epilogue, so no
 // normalised copy of the posts is ever written. A real all-zero post row
 // gives rsqrt(0) = inf times a zero dot, NaN, as both JAX functions give;
-// an all-zero brand row arrives as NaN from the caller's 0/0. The sums are
-// reduced into shared memory stage by stage (a warp shuffle over the 8
-// lanes that staged a row's columns), which keeps the kernel under the
-// two-blocks-an-SM register cap without spills; held in registers until
-// the end, they cost 16 more a thread and spilled.
+// an all-zero brand row is NaN from its division by its norm (0/0). The
+// sums are reduced into shared memory stage by stage (a warp shuffle over
+// the 8 lanes that staged a row's columns), which keeps the kernel under
+// the two-blocks-an-SM register cap without spills; held in registers
+// until the end, they cost 16 more a thread and spilled.
 //
 // Design. The TPU kernel takes a (512, D) post block per sequential grid
 // step and one matrix-unit product. Here a block owns a tile of 128 posts
@@ -33,6 +36,20 @@
 // the 0.2 GB of scores move in 1.28 ms at 3.35 TB/s. So it is bound by
 // operations, barely: the design keeps the posts to one pass from device
 // memory and spends its effort on keeping the FMA pipes fed from registers.
+//
+// Few posts. The test split's 816 posts make ceil(816 / 128) = 7 tiles: 7
+// blocks on 132 SMs, each walking all 32 D stages in turn. There the caller
+// splits D into S slices of whole stages (`cosine_slices` in
+// ops/similarity.py picks S so that the tiles times S fill the card), and a
+// block (tile, slice) writes its partial dots of the raw brands (S, B, N)
+// and its post rows' partial sums of squares (S, N) to float32 scratch. A
+// second kernel takes the brand's norm, adds the S partials of each score
+// in slice order, applies both scales and writes out; it is launched with
+// programmatic dependent launch, so its blocks are resident, their brand
+// norms taken, when the first kernel's last blocks end. Taking the norm
+// there spares the caller's two PyTorch calls, whose host time is more
+// than the card's part of a call at this size. No atomics: a call gives the
+// same bits run to run. At scale (S = 1) the single pass runs alone.
 
 #include <cuda_runtime.h>
 
@@ -68,9 +85,15 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
+// SPLIT: block z takes D values [z * kslice, min(D, (z + 1) * kslice)) and
+// writes dots[z, b, n] and sqs[z, n] (one brand tile writes the latter)
+// instead of out; kslice is a multiple of KC. There `bn` holds the raw
+// brands: the adding kernel divides by their norms.
+template <bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
     const float* __restrict__ bn, const float* __restrict__ posts,
-    float* __restrict__ out, int B, int N, int D) {
+    float* __restrict__ out, float* __restrict__ dots,
+    float* __restrict__ sqs, int B, int N, int D, int kslice) {
   __shared__ __align__(16) float as[KC * AS];     // [k][brand]
   __shared__ __align__(16) float ps[KC * PS];     // [k][post]
   __shared__ float part[4][TN];
@@ -83,6 +106,10 @@ __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
   const int n0 = blockIdx.x * TN;
   const int row0 = (warp >> 2) * 4 + (lane >> 3);
   const int col = (warp & 3) * 8 + (lane & 7);
+  const int kbeg = SPLIT ? static_cast<int>(blockIdx.z) * kslice : 0;
+  const int kend = SPLIT ? min(D, kbeg + kslice) : D;
+  if constexpr (SPLIT)   // the adding kernel may start; it waits for all
+    asm volatile("griddepcontrol.launch_dependents;");
 
   float acc[4][8];
 #pragma unroll
@@ -96,8 +123,8 @@ __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
     for (int q = 0; q < P_LD; ++q) part[warp & 3][row0 + 8 * q] = 0.0f;
 
   float br[A_LD], pr[P_LD];
-  load_stage(bn, posts, b0, n0, 0, row0, col, B, N, D, br, pr);
-  for (int k0 = 0; k0 < D; k0 += KC) {
+  load_stage(bn, posts, b0, n0, kbeg, row0, col, B, N, D, br, pr);
+  for (int k0 = kbeg; k0 < kend; k0 += KC) {
 #pragma unroll
     for (int q = 0; q < A_LD; ++q) as[col * AS + row0 + 8 * q] = br[q];
 #pragma unroll
@@ -112,7 +139,7 @@ __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
     }
     __syncthreads();
     // the next stage's loads are in flight during these products
-    if (k0 + KC < D)
+    if (k0 + KC < kend)
       load_stage(bn, posts, b0, n0, k0 + KC, row0, col, B, N, D, br, pr);
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
@@ -127,6 +154,25 @@ __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], pv[j], acc[i][j]);
     }
     __syncthreads();
+  }
+
+  if constexpr (SPLIT) {
+    const size_t z = blockIdx.z;
+    if (blockIdx.y == 0 && tid < TN && n0 + tid < N)
+      sqs[z * N + n0 + tid] =
+          part[0][tid] + part[1][tid] + part[2][tid] + part[3][tid];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + ty * 4 + i;
+      if (b >= B) break;
+      float* drow = dots + (z * B + b) * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = (j / 4) * 64 + tx * 4 + j % 4;
+        if (n0 + c < N) drow[n0 + c] = acc[i][j];
+      }
+    }
+    return;
   }
 
   if (tid < TN) inv[tid] = rsqrtf(part[0][tid] + part[1][tid] + part[2][tid] + part[3][tid]);
@@ -145,17 +191,91 @@ __global__ void __launch_bounds__(THREADS, 2) cosine_scores_kernel(
   }
 }
 
+constexpr int NORM_THREADS = 256;
+
+// grid (ceil(N / NORM_THREADS), B): out[b, n] = (sum_z dots[z, b, n]) /
+// ||brands[b]|| * rsqrt(sum_z sqs[z, n]), each sum in slice order. The
+// split pass took the raw brands, so the brand's norm is applied here,
+// taken from an input of the call before the wait; an all-zero brand or
+// post row gives NaN, as the plain version does.
+__global__ void __launch_bounds__(NORM_THREADS) cosine_finish_kernel(
+    const float* __restrict__ brands, const float* __restrict__ dots,
+    const float* __restrict__ sqs, float* __restrict__ out, int B, int N,
+    int D, int S) {
+  const int n = blockIdx.x * NORM_THREADS + threadIdx.x;
+  const size_t b = blockIdx.y;
+  // the brand's norm, its sum of squares in a fixed order
+  __shared__ float warp_sums[NORM_THREADS / 32];
+  float bss = 0.0f;
+  for (int d = threadIdx.x; d < D; d += NORM_THREADS)
+    bss += brands[b * D + d] * brands[b * D + d];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    bss += __shfl_xor_sync(0xffffffffu, bss, off);
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = bss;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NORM_THREADS / 32; ++w) total += warp_sums[w];
+  const float nrm = sqrtf(total);
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the partials
+  if (n >= N) return;
+  float ss = 0.0f, dot = 0.0f;
+#pragma unroll 8
+  for (int z = 0; z < S; ++z) ss += sqs[(size_t)z * N + n];
+#pragma unroll 8
+  for (int z = 0; z < S; ++z) dot += dots[((size_t)z * B + b) * N + n];
+  out[b * N + n] = dot / nrm * rsqrtf(ss);
+}
+
 }  // namespace
 
-// bn (B, D) and posts (N, D) contiguous float32, out (B, N) float32; B, N
-// >= 1. Returns cudaGetLastError() after the launch (0 on success).
+// brands (B, D) and posts (N, D) contiguous float32, out (B, N) float32;
+// B, N >= 1. `slices` S splits D into S slices of whole stages of KC values
+// (the caller's choice; ceil(stages / ceil(stages / S)) must equal S): S = 1
+// is the single pass, on normalized brands, and takes no scratch; S > 1
+// takes the raw brands and float32 scratch of dots (S, B, N), then sqs
+// (S, N). Returns cudaGetLastError() after the launches (0 on success).
 // Launches on `stream`, does not synchronise.
-extern "C" int cosine_scores_fwd(const void* bn, const void* posts, void* out,
-                                 int B, int N, int D, void* stream) {
+extern "C" int cosine_scores_fwd(const void* brands, const void* posts,
+                                 void* out, void* scratch, int B, int N,
+                                 int D, int slices, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + TN - 1) / TN, (B + TB - 1) / TB);
-  cosine_scores_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const float*>(bn), static_cast<const float*>(posts),
-      static_cast<float*>(out), B, N, D);
+  const int stages = (D + KC - 1) / KC;
+  if (slices < 1 || slices > stages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* br = static_cast<const float*>(brands);
+  const float* p = static_cast<const float*>(posts);
+  float* o = static_cast<float*>(out);
+  if (slices == 1) {
+    const dim3 grid((N + TN - 1) / TN, (B + TB - 1) / TB);
+    cosine_scores_kernel<false><<<grid, THREADS, 0, s>>>(
+        br, p, o, nullptr, nullptr, B, N, D, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int per = (stages + slices - 1) / slices;      // stages a slice
+  if ((stages + per - 1) / per != slices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* d = static_cast<float*>(scratch);
+  float* q = d + (size_t)slices * B * N;
+  const dim3 grid((N + TN - 1) / TN, (B + TB - 1) / TB, slices);
+  cosine_scores_kernel<true><<<grid, THREADS, 0, s>>>(br, p, nullptr, d, q, B,
+                                                      N, D, per * KC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + NORM_THREADS - 1) / NORM_THREADS, B);
+  cfg.blockDim = dim3(NORM_THREADS);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const float* dc = d;
+  const float* qc = q;
+  err = cudaLaunchKernelEx(&cfg, cosine_finish_kernel, br, dc, qc, o, B, N,
+                           D, slices);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -465,223 +465,514 @@ int launch_fwd(const void* xw, const void* w_hh, const void* b_hh, void* out,
 // columns, and those come from every hidden unit's gate recompute, so no
 // block that owns a slice of units can finish it alone. Each reverse step
 // is therefore two launches (2T - 1 a call; the carry past t = 0 is not
-// needed):
-//   1. gate kernel: one warp per hidden unit j and one block per 8 batch
-//      rows. The block stages h_{t-1} of its rows in shared memory; each
-//      warp streams W_hh's three gate rows of unit j (contiguous in k,
-//      coalesced), accumulates the 3 x 8 dot products over its lanes and
-//      reduces them with a butterfly of shuffles, so every lane holds the
-//      same sums. Lane b then does row b's gate math, writes dxw_t and
-//      danp_t, leaves dh z in the carry buffer, and writes the gate grads
-//      da_cat (rounded to the activation type, as the TPU kernel rounds
-//      them) transposed, [3H][8 rows], for the contraction.
-//   2. carry kernel: one block per 16 output units and 8 batch rows; its 16
-//      half-warps split the 3H reduction rows, read W_hh[g, k0:k0+16] and
-//      the 8 rows' da_cat[g] (one broadcast pair of float4 loads), and the
-//      16 partial sums of each output are added in a fixed order through
-//      shared memory. No atomics: a call's result is the same run to run.
+// needed), both streaming all of W_hh from L2 (25.2 MB at H = 1024):
+//   1. gate kernel, `gru_bwd_gate_rows<T, R, N>`: the forward's block
+//      shape. A block of 8 warps owns R batch rows (8, 16 or 32, from B) of
+//      one direction and a span of hidden units; it stages h_{t-1} of its
+//      rows in shared memory once, and each warp takes one unit j at a time,
+//      streaming W_hh's three gate rows of j with 16-byte loads (the next
+//      stage's in flight) into 3 x R float32 sums a lane, which a fixed-order
+//      reduce-scatter (`reduce_rows`) leaves in one lane group a row. That
+//      group's first lane adds the carry in (below), does row b's gate math,
+//      writes dxw_t and danp_t, keeps dh z for the next carry, and writes
+//      the gate grads da_cat (rounded to the activation type, as the TPU
+//      kernel rounds them) as [3H][8 rows] for each group of 8 rows.
+//   2. carry kernel, `gru_bwd_carry_cols<T, N>`: a block owns 8 N output
+//      columns k of one direction and group of 8 rows, and one of P slices
+//      of the 3H contraction rows; its 8 warps take 4 contraction rows g at
+//      a time, 8 lanes a row, each lane one 16-byte load of W_hh[g, k..] and
+//      the 8 rows' da_cat[g] (two broadcast float4 loads), the next two
+//      rows' loads in flight. A two-stage reduce-scatter of shuffles and a
+//      sum over the warps in shared memory, in a fixed order, leave the
+//      block's partial product; it is stored in slice p of the scratch.
+//      P is the most slices that one wave of carry blocks holds by
+//      occupancy (B = 8, H = 1024, float32: 32 column tiles x 2
+//      directions, two blocks an SM, so P = 4 and 256 blocks), where one
+//      block a 16-column tile and all of 3H made 128 blocks. A second,
+//      partial wave costs more than the longer slices save (PERF.md has
+//      the times of P = 1 to 12).
+// The next gate kernel adds the carry in as round(dh z + (p_1 + .. + p_P)),
+// the slices in order, rounded to the activation type as the TPU kernel
+// rounds its carry. No atomics: a call gives the same bits run to run.
+//
+// Steps after the first launch use programmatic dependent launch: each
+// kernel lets the next one start at once, and a started kernel issues its
+// first W_hh loads (and the gate kernel stages h_{t-1}, an input of the
+// call, and sums the products of its first unit) before griddepcontrol.wait,
+// which returns when the previous launch has ended and its writes are
+// visible; the gate kernel waits before it reads the carry, the carry
+// kernel before it reads da_cat. Nothing is written before the wait. The
+// first launch of a call is a plain one: it waits for all earlier work on
+// the stream.
+//
 // Bound on an H100 at the training shape (T=64, B=8, H=1024, float32): two
 // B x 3H x H products per direction per step, 2 * 2 * 64 * 2 * 8 * 3072 *
 // 1024 = 12.9 GFLOP, 0.19 ms at 67 TFLOP/s; its device-memory bytes (xw,
 // h_prev, dout, dxw, danp, W_hh once: about 63 MB) take 0.02 ms. At B = 8
-// each launch reads all of W_hh (25.2 MB, resident in the 50 MB L2) for 8
-// rows of work, so the L2 stream of 2 x 25.2 MB a step, and the 127 launch
-// gaps, are what this simple version's time is made of.
+// each launch reads all of W_hh from L2 for 8 rows of work, so a reverse
+// step is two L2 streams of 25.2 MB (plus h staged once a block and da_cat
+// read once a column tile, 6.3 MB), about 7-8 us each at the 4 TB/s the
+// forward reaches, and the call's 127 launches come to about 1 ms.
 
-constexpr int BWD_ROWS = 8;                   // batch rows per block
-constexpr int BWD_WARPS = 8;                  // hidden units per gate block
-constexpr int BWD_THREADS = 32 * BWD_WARPS;   // 256
-constexpr int CARRY_COLS = 16;                // output units per carry block
-constexpr int CARRY_SLICES = 2 * BWD_WARPS;   // half-warps splitting 3H
+constexpr int CARRY_WARPS = 8;                // warps of a carry block
+constexpr int CARRY_THREADS = 32 * CARRY_WARPS;
+constexpr int CARRY_LANES = 8;                // lanes across a W_hh row
+constexpr int CARRY_SLOTS = CARRY_THREADS / CARRY_LANES;  // rows g at once: 32
+constexpr int CARRY_DEPTH = 2;                // rows g a lane loads a stage
+constexpr int BWD_MAX_PARTS = 12;             // slices P of 3H, at most
+constexpr int DA_ROWS = 8;                    // batch rows of a da_cat group
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// grid (ceil(H / BWD_WARPS), ceil(B / BWD_ROWS), 2); dynamic shared memory
-// BWD_ROWS * H floats. `carry` (2, B, H) float: in, the grad of h_t from
-// step t+1 (read only when has_carry); out, dh z. `da` (2, ceil(B/8), 3H,
-// 8) float: out, the gate grads of this step.
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS) gru_bwd_gate_kernel(
+// grid (ceil(H / span), ceil(B / R), 2), FWD_THREADS threads, dynamic
+// shared memory R * HP floats, as the forward's step kernel. `carry` (1 +
+// BWD_MAX_PARTS, 2, B, H) float: slot 0, dh z of the step after (read where
+// parts > 0) and of this step (written); slots 1..parts, the partial
+// products of the carry kernel after. `da` (2, ceil(B/8), 3H, 8) float:
+// out, the gate grads of this step.
+template <typename T, int R, int N>
+__global__ void __launch_bounds__(FWD_THREADS) gru_bwd_gate_rows(
     const T* __restrict__ xw, const T* __restrict__ h_prev,
     const T* __restrict__ dout, const T* __restrict__ w_hh,
     const float* __restrict__ b_hh, T* __restrict__ dxw,
     T* __restrict__ danp, float* __restrict__ carry, float* __restrict__ da,
-    int t, int B, int H, int has_carry) {
-  extern __shared__ float hs[];                    // [BWD_ROWS][H]
+    int t, int B, int H, int span, int parts) {
+  using Raw = typename Vec<T, N>::raw;
+  constexpr int LANES = 32 / R;               // lanes that end with a row
+  constexpr int CH = 32 * FWD_DEPTH;          // vectors of a row a stage
+  extern __shared__ __align__(16) float hs[];  // [R][HP]: h_{t-1}, float
+  const int HP = (H + 3) & ~3;
   const int d = blockIdx.z;
-  const int b0 = blockIdx.y * BWD_ROWS;
+  const int b0 = blockIdx.y * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j = blockIdx.x * BWD_WARPS + warp;
   const size_t G = 3 * (size_t)H;
-  const size_t step = (size_t)t * 2 + d;           // (t, d) slab index
+  const size_t BH = (size_t)B * H;
+  const size_t slab = (size_t)t * 2 + d;      // (t, d) slab index
+  const int j0 = static_cast<int>(blockIdx.x) * span;
+  const int j_end = min(H, j0 + span);
+  const int rounds = j0 + warp < j_end
+                         ? (j_end - j0 - warp + FWD_WARPS - 1) / FWD_WARPS
+                         : 0;
+  const int row = lane / LANES;
+  const int b = b0 + row;
+  const int groups8 = (B + DA_ROWS - 1) / DA_ROWS;
+  const bool lead = lane % LANES == 0;
+  const bool writes = lead && b < B;
+  // rows past B in the last da_cat group feed no stored output: zeros
+  const bool zeros = lead && b >= B && b < groups8 * DA_ROWS;
+  // read or written only where `writes` (da_rows also where `zeros`)
+  const T* x = xw + (slab * B + b) * G;
+  const T* dy = dout + (slab * B + b) * H;
+  T* dx = dxw + (slab * B + b) * G;
+  T* dnp = danp + (slab * B + b) * H;
+  float* dhz = carry + d * BH + (size_t)b * H;
+  float* da_rows = da + ((size_t)d * groups8 + b / DA_ROWS) * G * DA_ROWS +
+                   b % DA_ROWS;
+  const float* bh = b_hh + (size_t)d * G;
+  float xv[3], bv[3], dyv = 0.0f;             // a unit's gate inputs
 
-  const T* hp = h_prev + step * B * H;
-  for (int e = threadIdx.x; e < BWD_ROWS * H; e += BWD_THREADS) {
-    const int b = b0 + e / H;
-    hs[e] = b < B ? to_f(hp[(size_t)b * H + e % H]) : 0.0f;
+  let_next_step_start();
+  const T* w = w_hh + (size_t)d * G * H;
+  const int HV = H / N;                       // vectors a row of h or W_hh
+  const int nch = (HV + CH - 1) / CH;         // stages a unit
+  const int total = rounds * nch;             // stages of this warp
+
+  auto fetch = [&](Raw(&buf)[FWD_DEPTH][3], int it) {
+    const int q = it / nch, c = it - q * nch;
+    const int j = j0 + q * FWD_WARPS + warp;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const T* wrow = w + ((size_t)g * H + j) * H;
+#pragma unroll
+      for (int s = 0; s < FWD_DEPTH; ++s) {
+        const int v = (c * FWD_DEPTH + s) * 32 + lane;
+        if (v < HV)
+          buf[s][g] = *reinterpret_cast<const Raw*>(wrow + (size_t)v * N);
+      }
+    }
+  };
+
+  Raw cur[FWD_DEPTH][3], nxt[FWD_DEPTH][3];
+  if (total > 0) fetch(cur, 0);               // in flight while h is staged
+  // h_{t-1} = h_prev[t, d] of the block's rows, an input of the call;
+  // rows past B are zeros
+  const T* hp = h_prev + slab * BH;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < R * HV; e += FWD_THREADS) {
+    const int i = e / HV, v = e - i * HV;
+    float f[N];
+    if (b0 + i < B) {
+      unpack(*reinterpret_cast<const Raw*>(hp + (size_t)(b0 + i) * H +
+                                           (size_t)v * N),
+             f);
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) f[n] = 0.0f;
+    }
+    store_h<N>(hs + i * HP + v * N, f);
   }
   __syncthreads();
-  if (j >= H) return;                              // after the only barrier
 
-  const T* w = w_hh + (size_t)d * G * H;
-  const T* wr = w + (size_t)j * H;
-  const T* wz = w + ((size_t)H + j) * H;
-  const T* wn = w + ((size_t)2 * H + j) * H;
-  float acc[3][BWD_ROWS];
-#pragma unroll
-  for (int i = 0; i < BWD_ROWS; ++i) acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
-  for (int k = lane; k < H; k += 32) {
-    const float vr = to_f(wr[k]), vz = to_f(wz[k]), vn = to_f(wn[k]);
-#pragma unroll
-    for (int i = 0; i < BWD_ROWS; ++i) {
-      const float hv = hs[i * H + k];
-      acc[0][i] = fmaf(hv, vr, acc[0][i]);
-      acc[1][i] = fmaf(hv, vz, acc[1][i]);
-      acc[2][i] = fmaf(hv, vn, acc[2][i]);
-    }
-  }
-  // xor butterfly: partners add the same two numbers, so every lane ends
-  // with bit-identical sums
+  float acc[3][R];
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int i = 0; i < BWD_ROWS; ++i)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
-  if (lane >= BWD_ROWS) return;
+    for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
 
-  float pr = 0.0f, pz = 0.0f, pn = 0.0f;           // row `lane`'s products
-#pragma unroll
-  for (int i = 0; i < BWD_ROWS; ++i)
-    if (lane == i) {
-      pr = acc[0][i];
-      pz = acc[1][i];
-      pn = acc[2][i];
+  bool waited = false;
+  for (int it = 0; it < total; ++it) {
+    const int q = it / nch, c = it - q * nch;
+    const int j = j0 + q * FWD_WARPS + warp;
+    if (it + 1 < total) fetch(nxt, it + 1);
+    if (c == 0 && writes) {
+      load_gates(x, bh, j, H, xv, bv);
+      dyv = to_f(dy[j]);
     }
-  float* da_rows = da + ((size_t)d * gridDim.y + blockIdx.y) * G * BWD_ROWS;
-  const int b = b0 + lane;
-  if (b >= B) {                      // rows past B feed no stored output
-    da_rows[(size_t)j * BWD_ROWS + lane] = 0.0f;
-    da_rows[((size_t)H + j) * BWD_ROWS + lane] = 0.0f;
-    da_rows[((size_t)2 * H + j) * BWD_ROWS + lane] = 0.0f;
-    return;
+#pragma unroll
+    for (int s = 0; s < FWD_DEPTH; ++s) {
+      const int v = (c * FWD_DEPTH + s) * 32 + lane;
+      if (v < HV) {
+        float wv[3][N];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) unpack(cur[s][g], wv[g]);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float hv[N];
+          load_h<N>(hs + i * HP + v * N, hv);
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+#pragma unroll
+            for (int n = 0; n < N; ++n)
+              acc[g][i] = fmaf(hv[n], wv[g][n], acc[g][i]);
+        }
+      }
+    }
+    if (c == nch - 1) {                       // unit j is summed
+      float sum[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        sum[g] = reduce_rows<R>(acc[g], lane);
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
+      }
+      if (!waited) {                          // the carry kernel's partials
+        wait_for_previous_step();
+        waited = true;
+      }
+      if (writes) {
+        float carry_in = 0.0f;
+        if (parts > 0) {
+          float p = 0.0f;
+          for (int s = 1; s <= parts; ++s)
+            p += carry[((size_t)s * 2 + d) * BH + (size_t)b * H + j];
+          carry_in = round_to<T>(dhz[j] + p);
+        }
+        const float r = sigmoidf(xv[0] + (sum[0] + bv[0]));
+        const float z = sigmoidf(xv[1] + (sum[1] + bv[1]));
+        const float npre = sum[2] + bv[2];
+        const float n = tanhf(xv[2] + r * npre);
+        const float h = hs[row * HP + j];
+        const float dh = dyv + carry_in;
+        const float dn = dh * (1.0f - z);
+        const float dz = dh * (h - n);
+        const float da_n = dn * (1.0f - n * n);
+        const float da_z = dz * z * (1.0f - z);
+        const float dr = da_n * npre;
+        const float da_r = dr * r * (1.0f - r);
+        const float da_np = da_n * r;
+        dx[j] = from_f<T>(da_r);
+        dx[H + j] = from_f<T>(da_z);
+        dx[2 * H + j] = from_f<T>(da_n);
+        dnp[j] = from_f<T>(da_np);
+        da_rows[(size_t)j * DA_ROWS] = round_to<T>(da_r);
+        da_rows[((size_t)H + j) * DA_ROWS] = round_to<T>(da_z);
+        da_rows[((size_t)2 * H + j) * DA_ROWS] = round_to<T>(da_np);
+        dhz[j] = dh * z;                      // the carry kernel adds da W
+      } else if (zeros) {
+        da_rows[(size_t)j * DA_ROWS] = 0.0f;
+        da_rows[((size_t)H + j) * DA_ROWS] = 0.0f;
+        da_rows[((size_t)2 * H + j) * DA_ROWS] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < FWD_DEPTH; ++s)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) cur[s][g] = nxt[s][g];
   }
-  const T* x = xw + (step * B + b) * G;
-  const float* bh = b_hh + (size_t)d * G;
-  const float r = sigmoidf(to_f(x[j]) + (pr + bh[j]));
-  const float z = sigmoidf(to_f(x[H + j]) + (pz + bh[H + j]));
-  const float npre = pn + bh[2 * H + j];
-  const float n = tanhf(to_f(x[2 * H + j]) + r * npre);
-  const float h = hs[lane * H + j];
-  const size_t o = (step * B + b) * H + j;
-  const size_t c = ((size_t)d * B + b) * H + j;
-  const float dh = to_f(dout[o]) + (has_carry ? carry[c] : 0.0f);
-  const float dn = dh * (1.0f - z);
-  const float dz = dh * (h - n);
-  const float da_n = dn * (1.0f - n * n);
-  const float da_z = dz * z * (1.0f - z);
-  const float dr = da_n * npre;
-  const float da_r = dr * r * (1.0f - r);
-  const float da_np = da_n * r;
-  T* dx = dxw + (step * B + b) * G;
-  dx[j] = from_f<T>(da_r);
-  dx[H + j] = from_f<T>(da_z);
-  dx[2 * H + j] = from_f<T>(da_n);
-  danp[o] = from_f<T>(da_np);
-  da_rows[(size_t)j * BWD_ROWS + lane] = round_to<T>(da_r);
-  da_rows[((size_t)H + j) * BWD_ROWS + lane] = round_to<T>(da_z);
-  da_rows[((size_t)2 * H + j) * BWD_ROWS + lane] = round_to<T>(da_np);
-  carry[c] = dh * z;                 // the carry kernel adds da_cat W_hh
 }
 
-// grid (ceil(H / CARRY_COLS), ceil(B / BWD_ROWS), 2):
-// carry[d, b, k] = round(carry[d, b, k] + sum_g da[d, b, g] W_hh[d, g, k]).
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS) gru_bwd_carry_kernel(
-    const T* __restrict__ w_hh, const float* __restrict__ da,
-    float* __restrict__ carry, int B, int H) {
-  __shared__ float part[CARRY_SLICES][BWD_ROWS][CARRY_COLS];
-  const int d = blockIdx.z;
+// grid (ceil(H / (CARRY_LANES N)), P, 2 ceil(B/8)): block (x, p, d *
+// ceil(B/8) + group) sums da[d, group, g, i] W_hh[d, g, k] over its slice
+// g in [p gslice, (p + 1) gslice) of 3H for the group's 8 rows i and its
+// CARRY_LANES N columns k, into carry slot 1 + p. N values of a W_hh row a
+// load (N divides H on the vector path).
+template <typename T, int N>
+__global__ void __launch_bounds__(CARRY_THREADS, N <= 4 ? 2 : 1)
+    gru_bwd_carry_cols(const T* __restrict__ w_hh,
+                       const float* __restrict__ da,
+                       float* __restrict__ carry, int B, int H, int gslice) {
+  using Raw = typename Vec<T, N>::raw;
+  constexpr int CC = CARRY_LANES * N;         // columns of a block
+  __shared__ float red[CARRY_WARPS][DA_ROWS][CC];
+  const int groups8 = (B + DA_ROWS - 1) / DA_ROWS;
+  const int d = blockIdx.z / groups8, grp = blockIdx.z % groups8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int slice = warp * 2 + lane / CARRY_COLS;
-  const int col = lane % CARRY_COLS;
-  const int k = blockIdx.x * CARRY_COLS + col;
+  const int cl = lane % CARRY_LANES;
+  const int slot = warp * (32 / CARRY_LANES) + lane / CARRY_LANES;
   const int G = 3 * H;
-  const T* w = w_hh + (size_t)d * G * H;
-  const float* da_rows =
-      da + ((size_t)d * gridDim.y + blockIdx.y) * (size_t)G * BWD_ROWS;
+  const int k = blockIdx.x * CC + cl * N;     // the lane's first column
+  const bool live = k < H;
+  const int gbeg = blockIdx.y * gslice;
+  const int gend = min(G, gbeg + gslice);
+  // rows g of this lane: gbeg + slot + CARRY_SLOTS i, i < iters
+  const int iters = gbeg + slot < gend
+                        ? (gend - gbeg - slot + CARRY_SLOTS - 1) / CARRY_SLOTS
+                        : 0;
+  const int stages = (iters + CARRY_DEPTH - 1) / CARRY_DEPTH;
+  const T* w = w_hh + (size_t)d * G * H + k;
+  const float* a = da + ((size_t)d * groups8 + grp) * G * DA_ROWS;
 
-  float acc[BWD_ROWS];
+  let_next_step_start();
+  auto fetch_w = [&](Raw(&buf)[CARRY_DEPTH], int s) {
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS; ++i) acc[i] = 0.0f;
-  if (k < H) {
-    for (int g = slice; g < G; g += CARRY_SLICES) {
-      const float wv = to_f(w[(size_t)g * H + k]);
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(da_rows + (size_t)g * BWD_ROWS);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(da_rows + (size_t)g * BWD_ROWS + 4);
-      acc[0] = fmaf(a0.x, wv, acc[0]);
-      acc[1] = fmaf(a0.y, wv, acc[1]);
-      acc[2] = fmaf(a0.z, wv, acc[2]);
-      acc[3] = fmaf(a0.w, wv, acc[3]);
-      acc[4] = fmaf(a1.x, wv, acc[4]);
-      acc[5] = fmaf(a1.y, wv, acc[5]);
-      acc[6] = fmaf(a1.z, wv, acc[6]);
-      acc[7] = fmaf(a1.w, wv, acc[7]);
+    for (int q = 0; q < CARRY_DEPTH; ++q) {
+      const int i = s * CARRY_DEPTH + q;
+      if (live && i < iters)
+        buf[q] = *reinterpret_cast<const Raw*>(
+            w + (size_t)(gbeg + slot + i * CARRY_SLOTS) * H);
+    }
+  };
+  auto fetch_a = [&](float4(&buf)[CARRY_DEPTH][2], int s) {
+#pragma unroll
+    for (int q = 0; q < CARRY_DEPTH; ++q) {
+      const int i = s * CARRY_DEPTH + q;
+      if (i < iters) {
+        const float4* p = reinterpret_cast<const float4*>(
+            a + (size_t)(gbeg + slot + i * CARRY_SLOTS) * DA_ROWS);
+        buf[q][0] = p[0];
+        buf[q][1] = p[1];
+      }
+    }
+  };
+
+  float acc[DA_ROWS][N];
+#pragma unroll
+  for (int i = 0; i < DA_ROWS; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[i][n] = 0.0f;
+  Raw wc[CARRY_DEPTH], wn[CARRY_DEPTH];
+  float4 ac[CARRY_DEPTH][2], an[CARRY_DEPTH][2];
+  if (stages > 0) fetch_w(wc, 0);
+  wait_for_previous_step();                   // da of this step
+  if (stages > 0) fetch_a(ac, 0);
+  for (int s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      fetch_w(wn, s + 1);
+      fetch_a(an, s + 1);
+    }
+#pragma unroll
+    for (int q = 0; q < CARRY_DEPTH; ++q) {
+      if (live && s * CARRY_DEPTH + q < iters) {
+        float wv[N];
+        unpack(wc[q], wv);
+        const float av[DA_ROWS] = {ac[q][0].x, ac[q][0].y, ac[q][0].z,
+                                   ac[q][0].w, ac[q][1].x, ac[q][1].y,
+                                   ac[q][1].z, ac[q][1].w};
+#pragma unroll
+        for (int i = 0; i < DA_ROWS; ++i)
+#pragma unroll
+          for (int n = 0; n < N; ++n)
+            acc[i][n] = fmaf(av[i], wv[n], acc[i][n]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < CARRY_DEPTH; ++q) {
+      wc[q] = wn[q];
+      ac[q][0] = an[q][0];
+      ac[q][1] = an[q][1];
     }
   }
+
+  // the warp's 4 rows g of each column: a reduce-scatter over lane bits 4
+  // and 3 leaves rows i0, i0 + 1 (i0 from those bits) summed in each lane
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS; ++i) part[slice][i][col] = acc[i];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const bool up = lane & 16;
+      const float send = up ? acc[i][n] : acc[i + 4][n];
+      const float keep = up ? acc[i + 4][n] : acc[i][n];
+      acc[i][n] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const bool up = lane & 8;
+      const float send = up ? acc[i][n] : acc[i + 2][n];
+      const float keep = up ? acc[i + 2][n] : acc[i][n];
+      acc[i][n] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+  const int i0 = (lane & 16 ? 4 : 0) + (lane & 8 ? 2 : 0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n) red[warp][i0 + i][cl * N + n] = acc[i][n];
   __syncthreads();
-  if (threadIdx.x >= BWD_ROWS * CARRY_COLS) return;
-  const int i = threadIdx.x / CARRY_COLS, c2 = threadIdx.x % CARRY_COLS;
-  const int b = blockIdx.y * BWD_ROWS + i;
-  const int kk = blockIdx.x * CARRY_COLS + c2;
-  if (b >= B || kk >= H) return;
-  float s = 0.0f;
+  const size_t BH = (size_t)B * H;
+  float* part = carry + ((size_t)(1 + blockIdx.y) * 2 + d) * BH;
+  for (int o = threadIdx.x; o < DA_ROWS * CC; o += CARRY_THREADS) {
+    const int i = o / CC, c = o - i * CC;
+    const int bb = grp * DA_ROWS + i, kk = blockIdx.x * CC + c;
+    if (bb >= B || kk >= H) continue;
+    float sum = 0.0f;
 #pragma unroll
-  for (int p = 0; p < CARRY_SLICES; ++p) s += part[p][i][c2];
-  float* cp = carry + ((size_t)d * B + b) * H + kk;
-  *cp = round_to<T>(*cp + s);
+    for (int v = 0; v < CARRY_WARPS; ++v) sum += red[v][i][c];
+    part[(size_t)bb * H + kk] = sum;
+  }
 }
 
-template <typename T>
-int launch_bwd(const void* xw, const void* h_prev, const void* dout,
-               const void* w_hh, const void* b_hh, void* dxw, void* danp,
-               void* carry, void* da, int T_, int B, int H,
-               cudaStream_t stream) {
-  const int groups = (B + BWD_ROWS - 1) / BWD_ROWS;
-  const dim3 gate_grid((H + BWD_WARPS - 1) / BWD_WARPS, groups, 2);
-  const dim3 carry_grid((H + CARRY_COLS - 1) / CARRY_COLS, groups, 2);
-  const size_t smem = sizeof(float) * BWD_ROWS * (size_t)H;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gru_bwd_gate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+// The 2T - 1 launches with R rows a gate block, steps after the first with
+// programmatic dependent launch where `pdl`. The gate kernel's span makes
+// one wave, as the forward's; so do the carry kernel's slices P of 3H
+// (parts 0; at most BWD_MAX_PARTS, at least 32 rows g a slice).
+template <typename T, int R, int N>
+int launch_bwd_rows(const void* xw, const void* h_prev, const void* dout,
+                    const void* w_hh, const void* b_hh, void* dxw,
+                    void* danp, void* carry, void* da, int T_, int B, int H,
+                    int parts, bool pdl, cudaStream_t stream) {
+  const auto gate = gru_bwd_gate_rows<T, R, N>;
+  const auto carry_k = gru_bwd_carry_cols<T, N>;
+  const size_t smem = sizeof(float) * R * (size_t)((H + 3) & ~3);
+  int dev = 0, sms = 0, per_sm = 0, carry_per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      gate, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gate,
+                                                        FWD_THREADS, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &carry_per_sm, carry_k, CARRY_THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1 || carry_per_sm < 1)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int groups = (B + R - 1) / R;
+  const long rounds = (H + FWD_WARPS - 1) / FWD_WARPS;   // of all H units
+  const long slots = (long)sms * per_sm;
+  const int span =
+      static_cast<int>((rounds * groups * 2 + slots - 1) / slots) * FWD_WARPS;
+  const dim3 gate_grid((H + span - 1) / span, groups, 2);
+
+  const int G = 3 * H;
+  const int cols = CARRY_LANES * N;
+  const int gx = (H + cols - 1) / cols;
+  const int gz = 2 * ((B + DA_ROWS - 1) / DA_ROWS);
+  // parts 0: as many slices as one wave of carry blocks holds
+  if (parts == 0) parts = sms * carry_per_sm / (gx * gz);
+  parts = max(1, min(parts, min(BWD_MAX_PARTS,
+                                (G + CARRY_SLOTS - 1) / CARRY_SLOTS)));
+  const int gslice =
+      ((G + parts - 1) / parts + CARRY_SLOTS - 1) / CARRY_SLOTS * CARRY_SLOTS;
+  parts = (G + gslice - 1) / gslice;
+  const dim3 carry_grid(gx, parts, gz);
+
+  const T* x = static_cast<const T*>(xw);
+  const T* hp = static_cast<const T*>(h_prev);
+  const T* dy = static_cast<const T*>(dout);
+  const T* w = static_cast<const T*>(w_hh);
+  const float* bias = static_cast<const float*>(b_hh);
+  T* dx = static_cast<T*>(dxw);
+  T* dnp = static_cast<T*>(danp);
+  float* c = static_cast<float*>(carry);
+  float* a = static_cast<float*>(da);
+  const float* ac = a;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t gcfg = {};
+  gcfg.gridDim = gate_grid;
+  gcfg.blockDim = dim3(FWD_THREADS);
+  gcfg.dynamicSmemBytes = smem;
+  gcfg.stream = stream;
+  gcfg.attrs = &attr;
+  gcfg.numAttrs = 1;
+  cudaLaunchConfig_t ccfg = gcfg;
+  ccfg.gridDim = carry_grid;
+  ccfg.blockDim = dim3(CARRY_THREADS);
+  ccfg.dynamicSmemBytes = 0;
   for (int t = T_ - 1; t >= 0; --t) {
-    gru_bwd_gate_kernel<T><<<gate_grid, BWD_THREADS, smem, stream>>>(
-        static_cast<const T*>(xw), static_cast<const T*>(h_prev),
-        static_cast<const T*>(dout), static_cast<const T*>(w_hh),
-        static_cast<const float*>(b_hh), static_cast<T*>(dxw),
-        static_cast<T*>(danp), static_cast<float*>(carry),
-        static_cast<float*>(da), t, B, H, t < T_ - 1);
-    cudaError_t err = cudaGetLastError();
+    const int in = t < T_ - 1 ? parts : 0;  // partials of the carry after
+    // the first launch waits for all earlier work on the stream
+    if (pdl && t < T_ - 1) {
+      err = cudaLaunchKernelEx(&gcfg, gate, x, hp, dy, w, bias, dx, dnp, c,
+                               a, t, B, H, span, in);
+    } else {
+      gate<<<gate_grid, FWD_THREADS, smem, stream>>>(
+          x, hp, dy, w, bias, dx, dnp, c, a, t, B, H, span, in);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (t == 0) break;                 // the grad of h0 is not needed
-    gru_bwd_carry_kernel<T><<<carry_grid, BWD_THREADS, 0, stream>>>(
-        static_cast<const T*>(w_hh), static_cast<const float*>(da),
-        static_cast<float*>(carry), B, H);
-    err = cudaGetLastError();
+    if (pdl) {
+      err = cudaLaunchKernelEx(&ccfg, carry_k, w, ac, c, B, H, gslice);
+    } else {
+      carry_k<<<carry_grid, CARRY_THREADS, 0, stream>>>(w, ac, c, B, H,
+                                                        gslice);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// rows 0 picks R from B and H as the forward does; 8, 16 or 32 forces it.
+// parts 0 picks the carry kernel's slices of 3H; 1.. forces them.
+template <typename T, int N>
+int launch_bwd(const void* xw, const void* h_prev, const void* dout,
+               const void* w_hh, const void* b_hh, void* dxw, void* danp,
+               void* carry, void* da, int T_, int B, int H, int rows,
+               int parts, bool pdl, cudaStream_t stream) {
+  if (rows == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rows = B <= 8 ? 8 : B <= 16 ? 16 : 32;
+    while (rows > 8 && sizeof(float) * rows * (size_t)((H + 3) & ~3) >
+                           static_cast<size_t>(optin))
+      rows /= 2;
+  }
+  // 16-byte loads need 16-byte aligned rows of W_hh and h_prev, and da's
+  // float4 groups a 16-byte aligned base
+  if (reinterpret_cast<uintptr_t>(da) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % N == 0 &&
+                   reinterpret_cast<uintptr_t>(w_hh) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h_prev) % 16 == 0;
+#define BWD_LAUNCH(R, V)                                                    \
+  if (rows == R)                                                            \
+  return launch_bwd_rows<T, R, V>(xw, h_prev, dout, w_hh, b_hh, dxw, danp, \
+                                  carry, da, T_, B, H, parts, pdl, stream)
+  if (vec) {
+    BWD_LAUNCH(8, N);
+    BWD_LAUNCH(16, N);
+    BWD_LAUNCH(32, N);
+  } else {
+    BWD_LAUNCH(8, 1);
+    BWD_LAUNCH(16, 1);
+    BWD_LAUNCH(32, 1);
+  }
+#undef BWD_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -718,11 +1009,16 @@ extern "C" int gru_scan_fwd_rows(const void* xw, const void* w_hh,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The number of (2, B, H) float32 slots of the backward's carry scratch:
+// dh z, then up to BWD_MAX_PARTS partial products.
+extern "C" int gru_scan_bwd_carry_slots() { return 1 + BWD_MAX_PARTS; }
+
 // The backward pass (2T - 1 launches). xw, dout, h_prev (T, 2, B, 3H|H|H),
 // w_hh (2, 3H, H) in the activation type, b_hh (2, 3H) float32; outputs
 // dxw (T, 2, B, 3H) and danp (T, 2, B, H) in the activation type. Scratch,
-// allocated by the caller: carry (2, B, H) and da (2, ceil(B/8), 3H, 8),
-// both float32. dtype and the return value as for gru_scan_fwd.
+// allocated by the caller: carry (gru_scan_bwd_carry_slots(), 2, B, H) and
+// da (2, ceil(B/8), 3H, 8), both float32, da 16-byte aligned. dtype and the
+// return value as for gru_scan_fwd.
 extern "C" int gru_scan_bwd(const void* xw, const void* h_prev,
                             const void* dout, const void* w_hh,
                             const void* b_hh, void* dxw, void* danp,
@@ -730,10 +1026,36 @@ extern "C" int gru_scan_bwd(const void* xw, const void* h_prev,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(xw, h_prev, dout, w_hh, b_hh, dxw, danp, carry,
-                             da, T_, B, H, s);
+    return launch_bwd<float, 4>(xw, h_prev, dout, w_hh, b_hh, dxw, danp,
+                                carry, da, T_, B, H, 0, 0, true, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(xw, h_prev, dout, w_hh, b_hh, dxw, danp,
-                                     carry, da, T_, B, H, s);
+    return launch_bwd<__nv_bfloat16, 8>(xw, h_prev, dout, w_hh, b_hh, dxw,
+                                        danp, carry, da, T_, B, H, 0, 0,
+                                        true, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// gru_scan_bwd with the choices forced, for measuring them: `rows` batch
+// rows a gate block (8, 16 or 32, or 0 to pick); `parts` slices of 3H in
+// the carry kernel (1 to BWD_MAX_PARTS, or 0 to pick); `pdl` 1 for
+// programmatic dependent launch of the launches after the first, 0 for
+// plain launches.
+extern "C" int gru_scan_bwd_cfg(const void* xw, const void* h_prev,
+                                const void* dout, const void* w_hh,
+                                const void* b_hh, void* dxw, void* danp,
+                                void* carry, void* da, int T_, int B, int H,
+                                int dtype, int rows, int parts, int pdl,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 0 || parts < 0 || parts > BWD_MAX_PARTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_bwd<float, 4>(xw, h_prev, dout, w_hh, b_hh, dxw, danp,
+                                carry, da, T_, B, H, rows, parts, pdl != 0,
+                                s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, 8>(xw, h_prev, dout, w_hh, b_hh, dxw,
+                                        danp, carry, da, T_, B, H, rows,
+                                        parts, pdl != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -131,6 +131,20 @@ def gru_scan_bwd_ref(xw: torch.Tensor, h_prev: torch.Tensor,
     return dxw, danp
 
 
+def bwd_scratch(b: int, hidden: int, device: torch.device):
+    """The float32 scratch of the backward's C entries: carry, the carried
+    grad of h (dh z, then the carry kernel's partial products), in as many
+    (2, B, H) slots as the library's `gru_scan_bwd_carry_slots` says; and
+    da (2, ceil(B/8), 3H, 8), the gate grads of one step laid out [3H][8
+    rows] for each group of 8 batch rows."""
+    slots = _build.load("gru_scan").gru_scan_bwd_carry_slots()
+    carry = torch.empty((slots, 2, b, hidden), dtype=torch.float32,
+                        device=device)
+    da = torch.empty((2, -(-b // 8), 3 * hidden, 8), dtype=torch.float32,
+                     device=device)
+    return carry, da
+
+
 def gru_scan_bwd_cuda(xw: torch.Tensor, h_prev: torch.Tensor,
                       dout: torch.Tensor, w_hh: torch.Tensor,
                       b_hh: torch.Tensor):
@@ -167,11 +181,7 @@ def gru_scan_bwd_cuda(xw: torch.Tensor, h_prev: torch.Tensor,
     danp = torch.empty((t, 2, b, hidden), dtype=dt, device=xw.device)
     if danp.numel() == 0:
         return dxw, danp
-    # scratch: the carried grad of h, and the gate grads of one step laid
-    # out [3H][8 rows] for each group of 8 batch rows
-    carry = torch.empty((2, b, hidden), dtype=torch.float32, device=xw.device)
-    da = torch.empty((2, -(-b // 8), g3, 8), dtype=torch.float32,
-                     device=xw.device)
+    carry, da = bwd_scratch(b, hidden, xw.device)
     lib = _build.load("gru_scan")
     fn = lib.gru_scan_bwd
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4

@@ -20,7 +20,9 @@ that scale.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,10 +48,53 @@ def cosine_scores_ref(brands: torch.Tensor, posts: torch.Tensor
     return brands_n @ (posts * inv).T
 
 
+# K4's tiles (csrc/cosine_scores.cu): posts and brands a block, D values a
+# stage
+_K4_POSTS, _K4_BRANDS, _K4_STAGE = 128, 64, 32
+
+
+def cosine_slices(b: int, n: int, d: int, sms: int) -> int:
+    """The number S of D slices K4 runs in for a (b, n, d) call on a card of
+    `sms` SMs: 1 (the single pass) when its tiles make two blocks an SM;
+    else the fewest slices of whole D stages that, times the tiles, reach
+    two blocks an SM, up to one stage a slice. Slices hold ceil(stages / S)
+    stages, the last one the rest."""
+    tiles = -(-n // _K4_POSTS) * -(-b // _K4_BRANDS)
+    stages = -(-d // _K4_STAGE)
+    if tiles >= 2 * sms:
+        return 1
+    per = -(-stages // min(stages, -(-2 * sms // tiles)))
+    return -(-stages // per)
+
+
+def cosine_scratch_len(b: int, n: int, slices: int) -> int:
+    """Float32 values of K4's scratch: none for the single pass; for a split
+    the partial dots (S, B, N) and the partial sums of squares (S, N)."""
+    return slices * (b + 1) * n if slices > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _cosine_fn():
+    fn = _build.load("cosine_scores").cosine_scores_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def cosine_scores_cuda(brands: torch.Tensor, posts: torch.Tensor
                        ) -> torch.Tensor:
-    """Launch `csrc/cosine_scores.cu` on the current stream. The brands are
-    normalized here (51 rows); the posts inside the kernel."""
+    """Launch `csrc/cosine_scores.cu` on the current stream: one pass on
+    the brands normalized here, or with few posts a D-split pass on the raw
+    brands and a pass that adds the slices and divides by the brands' norms
+    (`cosine_slices`). The posts are normalized inside the kernel. The split
+    call is kept to two allocations and one foreign call: at the test
+    split's size the host's part of a call is larger than the card's."""
     if brands.device.type != "cuda":
         raise ValueError("cosine_scores_cuda needs CUDA tensors, got %s"
                          % brands.device)
@@ -61,23 +106,30 @@ def cosine_scores_cuda(brands: torch.Tensor, posts: torch.Tensor
     if brands.dtype != torch.float32 or posts.dtype != torch.float32:
         raise ValueError("cosine_scores_cuda takes float32, got %s and %s"
                          % (brands.dtype, posts.dtype))
-    if posts.device != brands.device:
+    dev = brands.device
+    if posts.device != dev:
         raise ValueError("brands and posts must be on one device")
     b, d = brands.shape
     n = posts.shape[0]
     if b == 0 or n == 0 or d == 0:
         raise ValueError("need B, N, D >= 1, got B=%d N=%d D=%d" % (b, n, d))
-    brands_n = (brands / torch.linalg.norm(brands, dim=1,
-                                           keepdim=True)).contiguous()
+    brands = brands.contiguous()
     posts = posts.contiguous()
-    out = torch.empty((b, n), dtype=torch.float32, device=brands.device)
-    fn = _build.load("cosine_scores").cosine_scores_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(brands.device):
-        stream = torch.cuda.current_stream(brands.device).cuda_stream
-        err = fn(brands_n.data_ptr(), posts.data_ptr(), out.data_ptr(),
-                 b, n, d, stream)
+    slices = cosine_slices(b, n, d, _sm_count(dev))
+    if slices == 1:
+        brands = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    scratch = (torch.empty(cosine_scratch_len(b, n, slices),
+                           dtype=torch.float32, device=dev)
+               if slices > 1 else None)
+    # kernels launch on the current device: switch only when it differs
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        err = _cosine_fn()(brands.data_ptr(), posts.data_ptr(),
+                           out.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(),
+                           b, n, d, slices,
+                           torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("cosine_scores kernel launch failed: CUDA error %d"
                            % err)

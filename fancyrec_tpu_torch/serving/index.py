@@ -103,10 +103,10 @@ def build_index(checkpoint_path: str, rootpath: str, collection: str,
                 device="cuda") -> int:
     """Encode every post of a collection into an on-disk index."""
     from fancyrec_tpu_torch.eval.evaluator import brand_embeddings
-    from fancyrec_tpu_torch.train.checkpoints import load_checkpoint
+    from fancyrec_tpu_torch.train.checkpoints import load_any
 
     dev = resolve_device(device)
-    ckpt = load_checkpoint(checkpoint_path)
+    ckpt = load_any(checkpoint_path)
     cap_ids, brands, post_embs, cfg, model = _encode_collection(
         ckpt, rootpath, collection, batch_size, bert_vocab, dev)
 
@@ -142,12 +142,12 @@ def add_collection_to_index(index_dir: str, rootpath: str, collection: str,
                             device="cuda") -> int:
     """Encode a new collection with the index's own checkpoint and append
     its posts (incremental index update; no rebuild)."""
-    from fancyrec_tpu_torch.train.checkpoints import load_checkpoint
+    from fancyrec_tpu_torch.train.checkpoints import load_any
 
     dev = resolve_device(device)
     with open(os.path.join(index_dir, "index_meta.json")) as f:
         meta = json.loads(f.read())
-    ckpt = load_checkpoint(meta["checkpoint"])
+    ckpt = load_any(meta["checkpoint"])
     cap_ids, brands, post_embs, _, _ = _encode_collection(
         ckpt, rootpath, collection, batch_size, bert_vocab, dev)
     return append_to_index(index_dir, cap_ids, post_embs, brands)
@@ -219,13 +219,21 @@ def _maybe_append_quantized_sidecar(index_dir: str, new_rows: np.ndarray,
     np.save(ipath, np.concatenate([inv, tinv]))
 
 
+def fused_eligible(quantize: str, k: int, dim: int) -> bool:
+    """Whether a query takes the fused int8 score+top-k
+    (`ops.similarity.topk_int8`, the CUDA kernel on the card): an int8
+    index, 1 <= k <= 128, and rows of whole 4-byte words (dim % 4 == 0),
+    which the kernel reads. Other queries take `retrieval_topk`."""
+    return quantize == "int8" and 1 <= k <= 128 and dim % 4 == 0
+
+
 class PostIndex:
     """Query interface over a built index directory, on one device.
 
     quantize="int8" keeps the index int8 on the device (quantized on the
-    host, so loads ship 1 byte/elem) and, for k <= 128, answers with the
-    fused int8 score+top-k (`ops.similarity.topk_int8`: the CUDA kernel on
-    the card); other queries take `retrieval_topk`.
+    host, so loads ship 1 byte/elem); a query that `fused_eligible` admits
+    answers with the fused int8 score+top-k, the others with
+    `retrieval_topk` over the same int8 rows.
     """
 
     def __init__(self, index_dir: str, quantize: str = "", device="cuda"):
@@ -304,7 +312,7 @@ class PostIndex:
         q = torch.from_numpy(self.brand_embs[np.asarray(brand_ids)]).to(
             self.device)
         posts = self.posts()
-        if self.quantize == "int8" and k <= 128:
+        if fused_eligible(self.quantize, k, self.store.ndims):
             vals, idxs = topk_int8(q, posts, self._posts_inv, k,
                                    n_valid=self.n_posts)
         else:

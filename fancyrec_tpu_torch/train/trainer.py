@@ -237,6 +237,10 @@ def _run(cfg: Config, device: torch.device):
                              grouped="window" if cfg.length_grouped else "off"),
         "val": BatchLoader(datasets["val"], cfg.batch_size, final_batch="pad",
                            grouped=eval_grouped),
+        # 'check': the train split re-scored, to see overfitting
+        # (--validate_split check)
+        "check": BatchLoader(datasets["train"], cfg.batch_size,
+                             final_batch="pad", grouped=eval_grouped),
         "test": BatchLoader(datasets["test"], cfg.batch_size,
                             final_batch="pad", grouped=eval_grouped),
     }
@@ -254,7 +258,9 @@ def _run(cfg: Config, device: torch.device):
     if cfg.resume:
         if os.path.isfile(cfg.resume):
             print("=> loading checkpoint '%s'" % cfg.resume)
-            ckpt = checkpoints.load_checkpoint(cfg.resume)
+            # the port's own checkpoint or a reference torch one; only the
+            # port's carries the optimizer state
+            ckpt = checkpoints.load_any(cfg.resume)
             model.load_state_dict(ckpt["state_dict"])
             if "optimizer" in ckpt:
                 opt.load_state_dict(ckpt["optimizer"])

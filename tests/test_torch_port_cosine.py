@@ -85,3 +85,33 @@ def test_cuda_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tsim.cosine_scores(torch.zeros(2, 8, device="meta"),
                            torch.zeros(5, 8, device="meta"))
+
+
+@pytest.mark.parametrize("b,n,d,sms,want", [
+    (51, 816, 1024, 132, 32),        # the test split: 7 tiles, a stage each
+    (51, 1_000_000, 1024, 132, 1),   # 1M posts: the single pass
+    (51, 1, 1024, 132, 32),
+    (3, 5, 7, 132, 1),               # one D stage: nothing to split
+    (64, 129, 1000, 132, 32),        # a ragged last stage
+    (51, 53 * 128, 1024, 132, 5),    # slices of 7, 7, 7, 7 and 4 stages
+    (51, 816, 1024, 16, 5),          # a small card: 7 tiles x 5 >= 32
+    (130, 2 * 128 * 132, 64, 132, 1),
+])
+def test_cosine_slices(b, n, d, sms, want):
+    """K4's slice count: the tiles times S reach two blocks an SM where the
+    stages allow, S = 1 at scale, and the slices of whole stages cover D
+    once, the last one ragged where the stages do not divide."""
+    s = tsim.cosine_slices(b, n, d, sms)
+    assert s == want
+    tiles = -(-n // 128) * -(-b // 64)
+    stages = -(-d // 32)
+    if tiles >= 2 * sms:
+        assert s == 1
+    else:
+        assert tiles * s >= min(2 * sms, tiles * stages)
+    per = -(-stages // s)                 # the kernel's stages a slice
+    assert -(-stages // per) == s
+    bounds = [(z * per * 32, min(d, (z + 1) * per * 32)) for z in range(s)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == d
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == c[0] for a, c in zip(bounds, bounds[1:]))

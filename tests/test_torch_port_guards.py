@@ -14,6 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fancyrec_tpu")
 def _port_sources():
     files = sorted((ROOT / "fancyrec_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "kernel_ab.py")
     return files
 
 
