@@ -17,8 +17,12 @@ Phases:
      backward calls must give the same bits); the cosine at the test
      split's 816 posts (split over D) and at 1M posts (one pass); the
      brand dropout's masks, as both of its kernels draw them, bit for bit
-     against the plain Philox mask; edge shapes of every kernel, and an
-     int8 index 30 wide, which K3 does not take;
+     against the plain Philox mask, and its integer work counted from the
+     SASS; K3 at 51 x 1M x 1024 (two calls bit-identical, the quantization
+     inside its C entry against the plain one, its kernels in one profiled
+     call); edge shapes of every kernel (K3 up to 33,024 wide, its brands
+     through its ring), and int8 indexes 30 wide (which K3 does not take)
+     and 4096 wide (which it does) served on the card as on the CPU;
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -65,6 +69,7 @@ N_REQUESTS = 21   # /v1/topk calls on the main path, the first a warm-up
 VIDEOS_PER_BRAND, IMGS_PER_BRAND, FRAMES = 40, 40, 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+INT32_OPS = F32_FLOPS / 4   # 64 integer operations a clock an SM, not 256
 K1_TOL = 1e-4     # float32; sum order over H=1024 and 64 recurrent steps
 # training shapes: bin/instance.sh's batch of 8 and 2000 brand aspects; the
 # brand dropout's keep probability and fixed seed words for the checks
@@ -83,6 +88,7 @@ K1B_TOL = 1e-4    # float32; sum order over 3H=3072 and 64 reverse steps
 K2_TOL = 1e-5     # float32 sums over 2000 aspects or 1024 columns; a single
                   # dropped element moves an output by |w asp|/1000 ~ 1e-3
 K3_TOL = 1e-6     # the same float32 products; only the sort differs
+K3_QTOL = 1e-6    # relative: the brand scale is rsqrtf of the same exact sum
 K4_TOL = 2e-5     # float32 sums over D=1024 in another order; the JAX
                   # package's tolerance for its kernel (test_similarity_ops)
 N_EVAL = N_BRANDS * (TRAIN_VIDEOS_PER_BRAND + TRAIN_IMGS_PER_BRAND)  # test
@@ -156,6 +162,7 @@ def check_gru(dev):
     log("gru_scan: kernel %.3f ms, plain %.3f ms, cuDNN GRU %.3f ms, "
         "input projection + kernel (the whole layer) %.3f ms"
         % (ms, plain_ms, library_ms, layer_ms))
+    check_gru_bwd_b128(rnn, x, xw, out_k, w_hh, b_hh, g)
     ops = 2 * (T - 1) * 2 * B_ENC * 3 * H * H        # h0 = 0: no product at t=0
     nbytes = 4 * (xw.numel() + w_hh.numel() + b_hh.numel() + out_k.numel())
     return {"name": "gru_scan", "route": "cuda",
@@ -165,8 +172,42 @@ def check_gru(dev):
             **roofline(nbytes, ops, F32_FLOPS), "library_ms": library_ms}
 
 
+def check_gru_bwd_b128(rnn, x, xw, out, w_hh, b_hh, g):
+    """K1-bwd at B=128 (the trainer's default batch) against its plain
+    version, timed beside the backward of cuDNN's GRU on the same recurrent
+    weights (which also forms the input and weight grads)."""
+    import torch
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_bwd_ref)
+
+    with torch.no_grad():
+        h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
+        dout = torch.randn(out.shape, generator=g, device=out.device)
+        got = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
+        want = gru_scan_bwd_ref(xw, h_prev, dout, w_hh, b_hh)
+        err = max((x_ - y).abs().max().item() for x_, y in zip(got, want))
+        if not err <= K1B_TOL:
+            fail("gru_scan_bwd at B=%d: max err %.3g > %g" % (B_ENC, err,
+                                                             K1B_TOL))
+        ms = statistics.median(cuda_ms(lambda: gru_scan_bwd_cuda(
+            xw, h_prev, dout, w_hh, b_hh), 5) for _ in range(3))
+        del got, want
+    xg = x.detach().requires_grad_(True)
+    y = rnn(xg)[0]
+    dy = torch.randn(y.shape, generator=g, device=y.device)
+    params = [xg] + list(rnn.parameters())
+    library_ms = statistics.median(cuda_ms(lambda: torch.autograd.grad(
+        y, params, dy, retain_graph=True), 5) for _ in range(3))
+    log("gru_scan_bwd at B=%d: kernel %.3f ms (max err %.3g), cuDNN GRU "
+        "backward %.3f ms (medians of 3 windows of 5)"
+        % (B_ENC, ms, err, library_ms))
+
+
 def check_topk(dev):
-    """K3 at the serving shape: kernel vs plain, indices equal."""
+    """K3 at the serving shape: kernel vs plain (indices equal), two calls
+    bit-equal, the quantization inside the C entry against
+    `quantize_rows_int8`; the wrapper call, the C entry alone and the
+    device time of the call's kernels, which must be the C entry's own."""
     import torch
     from fancyrec_tpu_torch.ops.similarity import (
         quantize_rows_int8, topk_int8_cuda, topk_int8_ref)
@@ -181,21 +222,39 @@ def check_topk(dev):
             torch.randn(hi - lo, DIM, generator=g, device=dev))
     with torch.no_grad():
         vk, ik = topk_int8_cuda(brands, posts_q, posts_inv, TOPK)
+        again = topk_int8_cuda(brands, posts_q, posts_inv, TOPK)
         vp, ip = topk_int8_ref(brands, posts_q, posts_inv, TOPK)
         torch.cuda.synchronize()
         if not torch.equal(ik, ip):
             fail("topk_int8 kernel indices differ from the plain version "
                  "in %d of %d slots" % (int((ik != ip).sum()), ik.numel()))
         err = (vk - vp).abs().max().item()
+        same = torch.equal(vk, again[0]) and torch.equal(ik, again[1])
         log("topk_int8: indices equal; max |kernel - plain| = %.3g "
-            "(tolerance %g)" % (err, K3_TOL))
+            "(tolerance %g); two calls bit-identical: %s" % (err, K3_TOL, same))
         if not math.isfinite(err) or err > K3_TOL:
             fail("topk_int8 kernel values disagree with its plain version")
-        ms = cuda_ms(lambda: topk_int8_cuda(brands, posts_q, posts_inv,
-                                            TOPK), 20)
+        if not same:
+            fail("two calls of the topk_int8 kernel differ")
+        check_topk_quantization(brands, posts_q, posts_inv)
+        entry = topk_entry(brands, posts_q, posts_inv, TOPK)[0]
+        ms = statistics.median(cuda_ms(lambda: topk_int8_cuda(
+            brands, posts_q, posts_inv, TOPK), 20) for _ in range(5))
+        entry_ms = statistics.median(cuda_ms(entry, 20) for _ in range(5))
+        dev_ms = device_ms(lambda: topk_int8_cuda(brands, posts_q, posts_inv,
+                                                  TOPK), 5)
+        names = call_kernels(lambda: topk_int8_cuda(brands, posts_q,
+                                                    posts_inv, TOPK))
         plain_ms = cuda_ms(lambda: topk_int8_ref(brands, posts_q, posts_inv,
                                                  TOPK), 3)
-    log("topk_int8: kernel %.3f ms, plain %.3f ms" % (ms, plain_ms))
+    log("topk_int8: one profiled wrapper call launches %d kernels: %s"
+        % (len(names), ", ".join(names)))
+    if not names or any(not n.startswith("topk_") for n in names):
+        fail("a topk_int8 call launched kernels besides its C entry's own")
+    log("topk_int8 %d x %d x %d, k=%d: wrapper call %.4f ms (median of 5 "
+        "windows of 20), C entry alone %.4f ms, device time of a call's "
+        "kernels %.4f ms (profiler union), plain %.3f ms"
+        % (N_BRANDS, N_POSTS, DIM, TOPK, ms, entry_ms, dev_ms, plain_ms))
     ops = 2 * N_BRANDS * N_POSTS * DIM
     nbytes = (4 * brands.numel() + posts_q.numel() + 4 * posts_inv.numel()
               + 8 * N_BRANDS * TOPK)
@@ -204,6 +263,91 @@ def check_topk(dev):
             "replaces": "fancyrec_tpu/ops/similarity.py:242",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roofline(nbytes, ops, INT8_OPS), "library_ms": None}
+
+
+def topk_entry(brands, posts_q, posts_inv, k, n_valid=None):
+    """K3's C entry on buffers made once, as the wrapper would call it:
+    (a call of it, vals, idxs, scratch, plan). Not counted as a launch of
+    the wrapper."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import (
+        _sm_count, _topk_fn, topk_int8_args, topk_int8_plan)
+
+    (b, d), dev = brands.shape, brands.device
+    n_valid = posts_q.shape[0] if n_valid is None else n_valid
+    plan = topk_int8_plan(b, n_valid, d, k, _sm_count(dev))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    vals = torch.empty((b, k), device=dev)
+    idxs = torch.empty((b, k), dtype=torch.int32, device=dev)
+    args = topk_int8_args(brands, posts_q, posts_inv, scratch, vals, idxs, k,
+                          n_valid, plan)
+    fn = _topk_fn()
+    if fn(*args):
+        fail("the topk_int8 C entry failed")
+    return (lambda: fn(*args)), vals, idxs, scratch, plan
+
+
+def check_topk_quantization(brands, posts_q, posts_inv):
+    """The brands' quantization inside K3's C entry: the q bytes it leaves
+    in scratch equal `quantize_rows_int8`'s exactly, and its scales are
+    within K3_QTOL of the plain rsqrt's (the same rsqrtf of the same exact
+    sum, so equal in practice)."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import quantize_rows_int8
+
+    _, _, _, scratch, plan = topk_entry(brands, posts_q, posts_inv, TOPK)
+    torch.cuda.synchronize()
+    (b, d) = brands.shape
+    dq = -(-d // 256) * 256                # q's rows: round_up(D, 256)
+    q_at, inv_at = plan.parts[:2]
+    q = scratch[q_at:q_at + b * dq].view(b, dq).view(torch.int8)
+    b_inv = scratch[inv_at:inv_at + 4 * b].view(torch.float32)
+    q_want, inv_want = quantize_rows_int8(brands)
+    if not torch.equal(q[:, :d], q_want) or q[:, d:].any():
+        fail("the quantization inside topk_int8 differs from "
+             "quantize_rows_int8 in %d of %d bytes"
+             % (int((q[:, :d] != q_want).sum()), q_want.numel()))
+    rel = ((b_inv - inv_want).abs() / inv_want.abs().clamp(min=1e-30)).max()
+    log("topk_int8: quantized brands equal quantize_rows_int8's bytes; "
+        "their scales max relative |diff| %.3g (tolerance %g), bit-equal: "
+        "%s" % (rel.item(), K3_QTOL, torch.equal(b_inv, inv_want)))
+    if not rel.item() <= K3_QTOL:
+        fail("the brand scales inside topk_int8 differ from the plain ones")
+
+
+def device_ms(fn, calls):
+    """The union of the intervals of the kernels that `calls` calls of fn
+    launch, in torch.profiler, a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    return _union_ms(spans) / calls if spans else float("nan")
+
+
+def call_kernels(fn):
+    """The names of the kernels one call of fn launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name.replace("(anonymous namespace)::", "")
+            .replace("void ", "").split("<")[0].split("(")[0]
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.time_range.end > e.time_range.start]
 
 
 def _cosine_case(g, dev, b, n, d, zero_post=None):
@@ -611,12 +755,27 @@ def check_aspect_dropout(dev):
     log("aspect_dropout: forward kernel %.4f ms (plain %.3f ms), backward "
         "kernel %.4f ms (plain %.3f ms)" % (fwd_ms, fwd_plain, bwd_ms,
                                             bwd_plain))
-    # per Philox4x32-10 block: 10 rounds of 2 high and 2 low 32-bit
-    # multiplies and 4 xors, 9 key bumps of 2 adds; then 4 compares. Integer
-    # operations are counted at the card's float32 rate, which no integer
-    # rate of the card exceeds.
-    philox = (b * a * c // 4) * (10 * 8 + 9 * 2 + 4)
-    flops = 2 * b * a * c
+    # integer work: the SASS instructions of one Philox4x32-10 block and its
+    # 4 keep compares (`philox_sass_ops`) by the pipe that issues them,
+    # IMAD* on the FMA pipe and the rest (LOP3, IADD3, ISETP, ...) on the
+    # ALU pipe, each 64 a clock an SM (the CUDA C Programming Guide's
+    # throughput table for compute capability 9.0, against 256 float32
+    # flops), the two pipes issuing side by side: the busier pipe bounds the
+    # time, as do the products' float32 flops on theirs. Each integer
+    # instruction of the busier pipe counts as F32_FLOPS / INT32_OPS flops
+    pipes = philox_sass_ops()
+    blocks = b * a * c // 4
+    int_flops = blocks * max(pipes.values()) * F32_FLOPS / INT32_OPS
+    bounds = [roofline(4 * (w.numel() + asp.numel() + out_k.numel()),
+                       max(int_flops, 2 * b * a * c), F32_FLOPS),
+              roofline(4 * (w.numel() + asp.numel() + gr.numel()
+                            + dw_k.numel() + dasp_k.numel()),
+                       max(int_flops, 4 * b * a * c), F32_FLOPS)]
+    log("aspect_dropout: SASS instructions a Philox block with its 4 "
+        "compares: %d on the FMA pipe, %d on the ALU pipe; %d blocks a call; "
+        "bounds %.4f ms forward, %.4f ms backward (%s)"
+        % (pipes["fma"], pipes["alu"], blocks, bounds[0]["bound_ms"],
+           bounds[1]["bound_ms"], bounds[0]["bound_by"]))
     common = {"route": "cuda",
               "source": "fancyrec_tpu_torch/csrc/aspect_dropout.cu",
               "library_ms": None}
@@ -624,15 +783,60 @@ def check_aspect_dropout(dev):
         {"name": "aspect_dropout_fwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:130",
          "max_abs_err": err_f, "ms": fwd_ms, "plain_ms": fwd_plain,
-         **roofline(4 * (w.numel() + asp.numel() + out_k.numel()),
-                    philox + flops, F32_FLOPS), **common},
+         **bounds[0], **common},
         {"name": "aspect_dropout_bwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:175",
          "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": bwd_plain,
-         **roofline(4 * (w.numel() + asp.numel() + gr.numel() + dw_k.numel()
-                         + dasp_k.numel()), philox + 2 * flops, F32_FLOPS),
-         **common},
+         **bounds[1], **common},
     ]
+
+
+def philox_sass_ops():
+    """SASS instructions that one Philox4x32-10 block and its 4 keep
+    compares take in the built K2 source, by pipe: {"fma": the IMAD*
+    instructions, "alu": the rest}. A probe kernel that calls its `keep4`
+    once, against one that only loads and stores the same words, both
+    compiled with the kernels' nvcc flags and read with cuobjdump."""
+    import re
+    from fancyrec_tpu_torch.ops import _build
+
+    work = os.path.join(HERE, "build", "philox_probe")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "probe.cu")
+    with open(src, "w") as f:
+        f.write('#include "%s"\n' % os.path.join(_build.CSRC,
+                                                  "aspect_dropout.cu")
+                + "extern \"C\" __global__ void probe_keep4(const uint64_t* e,"
+                " unsigned* out, uint2 key, uint32_t thr) {\n"
+                "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+                "  out[i] = keep4(e[i] << 2, key, thr, true);\n}\n"
+                "extern \"C\" __global__ void probe_base(const uint64_t* e,"
+                " unsigned* out, uint2 key, uint32_t thr) {\n"
+                "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+                "  out[i] = static_cast<unsigned>(e[i] << 2);\n}\n")
+    cubin = os.path.join(work, "probe.cubin")
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin, src],
+                   check=True, capture_output=True, text=True)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"),
+         "-sass", cubin], check=True, capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"fma": 0, "alu": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if fn and m and m.group(1) != "NOP":
+            counts[fn]["fma" if m.group(1).startswith("IMAD") else "alu"] += 1
+    if not {"probe_keep4", "probe_base"} <= set(counts):
+        fail("the Philox probe's SASS lacks its kernels: %s" % sorted(counts))
+    return {p: counts["probe_keep4"][p] - counts["probe_base"][p]
+            for p in ("fma", "alu")}
 
 
 def check_edges(dev):
@@ -646,8 +850,6 @@ def check_edges(dev):
         aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref)
     from fancyrec_tpu_torch.ops.gru_scan import (
         gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda, gru_scan_ref)
-    from fancyrec_tpu_torch.ops.similarity import (
-        quantize_rows_int8, topk_int8_cuda, topk_int8_ref)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     # the forward: B across the row-group sizes 8, 16 and 32, H not a
@@ -733,65 +935,110 @@ def check_edges(dev):
         if not err <= K2_TOL:
             fail("aspect_dropout B=%d A=%d C=%d keep=%g: max err %.3g > %g"
                  % (b, a, c, keep, err, K2_TOL))
-    for b, n, d, k, n_valid, dups in ((3, 1000, 132, 10, None, False),
-                                      (4, 300, 128, 8, 5, False),
-                                      (5, 2000, 256, 12, None, True),
-                                      (130, 700, 1024, 128, 650, False),
-                                      (51, 900, 2048, 128, None, False)):
-        brands = torch.randn(b, d, generator=g, device=dev)
-        rows = torch.randn(n, d, generator=g, device=dev)
-        if dups:                       # exact ties: copies of one row
-            rows[500:520] = rows[40]
-            rows[40] = rows[500:520] = brands[0] * 3
-        posts_q, posts_inv = quantize_rows_int8(rows)
-        vk, ik = topk_int8_cuda(brands, posts_q, posts_inv, k, n_valid)
-        vp, ip = topk_int8_ref(brands, posts_q, posts_inv, k, n_valid)
-        if not torch.equal(ik, ip) or not torch.allclose(
-                vk, vp, rtol=0, atol=K3_TOL, equal_nan=False):
-            fail("topk_int8 B=%d N=%d D=%d k=%d n_valid=%s differs from "
-                 "the plain version" % (b, n, d, k, n_valid))
     torch.cuda.synchronize()
-    check_int8_narrow_index(dev)
+    check_topk_edges(dev)
+    check_int8_routing(dev)
     log("edge shapes: every kernel agrees with its plain version")
 
 
-def check_int8_narrow_index(dev):
-    """An int8 index 30 wide, which K3 does not take (its rows are read in
-    4-byte words): `PostIndex.query` must answer through `retrieval_topk`
-    on the card, launch no K3, and serve the posts the CPU serves."""
+def check_topk_edges(dev):
+    """K3 against its plain version at shapes the main path does not reach;
+    two calls at each give the same bits."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import (
+        quantize_rows_int8, topk_int8_cuda, topk_int8_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    # K3: D whose rows are not whole 16 bytes (4-byte copies: 132, 36),
+    # whole 16 bytes short of a stage (48), exact ties, k above the valid
+    # rows, three brand tiles with data past n_valid; rows too wide for the
+    # brands in shared memory, which come through the ring (2048 and 4096
+    # at k = 128 and k = 10, 4100 with 4-byte copies, two brand tiles, and
+    # 33,024, too wide for the quantization kernel's seed thresholds); an
+    # all-zero post row and an all-zero brand row, n_valid one short of a
+    # tile and 0, k = 128 over fewer posts
+    for b, n, d, k, n_valid, mod in (
+            (3, 1000, 132, 10, None, None), (4, 300, 128, 8, 5, None),
+            (5, 2000, 256, 12, None, "ties"), (130, 700, 1024, 128, 650, None),
+            (51, 900, 2048, 128, None, None), (3, 1000, 36, 10, None, None),
+            (7, 333, 48, 10, 300, None),
+            (51, 3000, 4096, 128, None, None), (51, 3000, 4096, 10, 2900, None),
+            (5, 700, 4100, 10, 650, None), (70, 600, 4096, 128, None, "zeros"),
+            (3, 200, 33024, 128, None, None),
+            (6, 1000, 256, 10, None, "zeros"), (4, 256, 64, 10, 255, None),
+            (4, 256, 64, 10, 0, None), (3, 100, 128, 128, None, None),
+            (2, 64, 16, 128, 40, None)):
+        brands = torch.randn(b, d, generator=g, device=dev)
+        rows = torch.randn(n, d, generator=g, device=dev)
+        if mod == "ties":              # exact ties: copies of one row
+            rows[500:520] = rows[40]
+            rows[40] = rows[500:520] = brands[0] * 3
+        elif mod == "zeros":           # inv 0, score 0; q 0, scale 0
+            rows[7] = 0.0
+            brands[1] = 0.0
+        posts_q, posts_inv = quantize_rows_int8(rows)
+        vk, ik = topk_int8_cuda(brands, posts_q, posts_inv, k, n_valid)
+        vk2, ik2 = topk_int8_cuda(brands, posts_q, posts_inv, k, n_valid)
+        vp, ip = topk_int8_ref(brands, posts_q, posts_inv, k, n_valid)
+        if not torch.equal(ik, ip) or not torch.allclose(
+                vk, vp, rtol=0, atol=K3_TOL, equal_nan=False):
+            fail("topk_int8 B=%d N=%d D=%d k=%d n_valid=%s %s differs from "
+                 "the plain version" % (b, n, d, k, n_valid, mod or ""))
+        if not (torch.equal(vk, vk2) and torch.equal(ik, ik2)):
+            fail("two topk_int8 calls at B=%d N=%d D=%d k=%d differ"
+                 % (b, n, d, k))
+    torch.cuda.synchronize()
+    log("topk_int8 edge shapes: indices equal the plain version's, values "
+        "within %g, two calls bit-identical" % K3_TOL)
+
+
+def check_int8_routing(dev):
+    """Int8 indexes 30 wide, which K3 does not take (its rows are read in
+    4-byte words), and 4096 wide, which it takes with its brands through its
+    ring, at k = 10 and k = 128. `PostIndex.query` must answer on the card by
+    the route `fused_eligible` picks, launching K3 only where it picks it,
+    and serve the posts the CPU serves."""
     import numpy as np
     from fancyrec_tpu_torch.io.bigfile import BigFileWriter
     from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
-    from fancyrec_tpu_torch.serving.index import PostIndex
+    from fancyrec_tpu_torch.serving.index import PostIndex, fused_eligible
 
-    n, d, brands = 5000, 30, 7
+    n, brands = 5000, 7
     rng = np.random.default_rng(SEED)
-    work = os.path.join(HERE, "build", "chip_smoke_int8_d30")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        with BigFileWriter(work, ndims=d, delimiter="\t") as w:
-            w.write_batch(["post%05d#enc#0" % i for i in range(n)],
-                          rng.standard_normal((n, d), dtype=np.float32))
-        np.save(os.path.join(work, "brands.npy"),
-                rng.integers(0, brands, n).astype(np.int32))
-        np.save(os.path.join(work, "brand_embeddings.npy"),
-                rng.standard_normal((brands, d), dtype=np.float32))
-        with open(os.path.join(work, "index_meta.json"), "w") as f:
-            json.dump({"collection": "synthetic", "checkpoint": "",
-                       "brand_num": brands, "dim": d, "n_posts": n}, f)
-        launches = topk_int8_cuda.launches
-        vc, nc = PostIndex(work, quantize="int8", device=str(dev)).query(
-            list(range(brands)), k=TOPK)
-        vh, nh = PostIndex(work, quantize="int8", device="cpu").query(
-            list(range(brands)), k=TOPK)
-    finally:
+    for d, ks in ((30, (TOPK,)), (4096, (TOPK, 128))):
+        work = os.path.join(HERE, "build", "chip_smoke_int8_d%d" % d)
         shutil.rmtree(work, ignore_errors=True)
-    if topk_int8_cuda.launches != launches:
-        fail("an int8 query at D=%d launched topk_int8" % d)
-    if nc != nh or not np.allclose(vc, vh, rtol=0, atol=K3_TOL):
-        fail("the int8 query at D=%d on the card differs from the CPU's" % d)
-    log("int8 PostIndex.query at D=%d: retrieval_topk on the card, the CPU's "
-        "posts for all %d brands" % (d, brands))
+        try:
+            with BigFileWriter(work, ndims=d, delimiter="\t") as w:
+                w.write_batch(["post%05d#enc#0" % i for i in range(n)],
+                              rng.standard_normal((n, d), dtype=np.float32))
+            np.save(os.path.join(work, "brands.npy"),
+                    rng.integers(0, brands, n).astype(np.int32))
+            np.save(os.path.join(work, "brand_embeddings.npy"),
+                    rng.standard_normal((brands, d), dtype=np.float32))
+            with open(os.path.join(work, "index_meta.json"), "w") as f:
+                json.dump({"collection": "synthetic", "checkpoint": "",
+                           "brand_num": brands, "dim": d, "n_posts": n}, f)
+            card = PostIndex(work, quantize="int8", device=str(dev))
+            host = PostIndex(work, quantize="int8", device="cpu")
+            for k in ks:
+                launches = topk_int8_cuda.launches
+                vc, nc = card.query(list(range(brands)), k=k)
+                vh, nh = host.query(list(range(brands)), k=k)
+                fused = fused_eligible("int8", k, d)
+                if topk_int8_cuda.launches - launches != int(fused):
+                    fail("an int8 query at D=%d k=%d launched topk_int8 %d "
+                         "times (fused_eligible: %s)"
+                         % (d, k, topk_int8_cuda.launches - launches, fused))
+                if nc != nh or not np.allclose(vc, vh, rtol=0, atol=K3_TOL):
+                    fail("the int8 query at D=%d k=%d on the card differs "
+                         "from the CPU's" % (d, k))
+                log("int8 PostIndex.query at D=%d k=%d: %s on the card, the "
+                    "CPU's posts for all %d brands"
+                    % (d, k, "topk_int8" if fused else "retrieval_topk",
+                       brands))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def _wrappers():

@@ -23,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -292,11 +292,111 @@ def topk_int8_ref(brands: torch.Tensor, posts_q: torch.Tensor,
     return vals, idxs
 
 
+# K3's shapes (csrc/topk_int8.cu): brands a block, posts a tile, the pad
+# after each shared row, an H100 block's dynamic shared memory, the ring's
+# stage counts, and its stages' bytes of D with the brands in shared memory
+# (the widest that fits first) and with them in the ring
+_K3_BRANDS, _K3_POSTS, _K3_PAD, _K3_SMEM = 64, 128, 16, 232448
+_K3_MIN_STAGES, _K3_MAX_STAGES = 4, 8
+_K3_STAGE_BYTES, _K3_RING_STAGE_BYTES = (256, 128), 128
+
+
+class TopkPlan(NamedTuple):
+    """K3's launch: blocks a brand tile, bytes of D a ring stage, ring
+    stages, whether the brands come through the ring beside the posts (rows
+    too wide for shared memory), the bytes of scratch and the offsets of its
+    parts (quantized brands, their scales, their first thresholds, each
+    block's best key of each brand, the blocks' candidate lists)."""
+    grid: int
+    ks: int
+    stages: int
+    ring_brands: bool
+    scratch_bytes: int
+    parts: Tuple[int, int, int, int, int]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _k3_smem(d: int, k: int, ks: int, stages: int, ring_brands: bool) -> int:
+    """Dynamic shared memory of K3's partial kernel (the C source's
+    `partial_smem`, which the C entry checks against the block's limit):
+    the ring's barriers, the brands' top-k lists, thresholds and locks, the
+    64 brand rows unless they come through the ring, and the ring."""
+    v16 = d % 16 == 0      # tensor-map copies: unpadded, 1024-aligned
+    row = ks if v16 else ks + _K3_PAD
+    rows = _K3_POSTS + (_K3_BRANDS if ring_brands else 0)
+    return (16 * _K3_MAX_STAGES + _K3_BRANDS * (8 * k + 12)
+            + (0 if ring_brands else
+               _K3_BRANDS * (_round_up(d, ks) + _K3_PAD))
+            + (1024 if v16 else 0) + stages * rows * row)
+
+
+def topk_int8_plan(b: int, n: int, d: int, k: int, sms: int) -> TopkPlan:
+    """K3's launch for b brands over n valid posts of width d on a card of
+    `sms` SMs: one block an SM, shared out among the 64-brand tiles (no more
+    than the 128-post tiles); the widest stage (256 or 128 bytes of D) that
+    leaves room for 4 ring stages beside the 64 brand rows, else the brands
+    through the ring in stages of 128 bytes; as many stages as fit up to 8."""
+    if not (1 <= k <= 128 and d % 4 == 0 and d >= 4):
+        raise ValueError("K3 takes 1 <= k <= 128 and D %% 4 == 0, got k=%d "
+                         "D=%d" % (k, d))
+    brand_tiles = -(-b // _K3_BRANDS)
+    grid = max(1, min(-(-n // _K3_POSTS), -(-sms // brand_tiles)))
+
+    def fit(ks, ring_brands):
+        room = _K3_SMEM - _k3_smem(d, k, ks, 0, ring_brands)
+        return min(_K3_MAX_STAGES,
+                   room // (_k3_smem(d, k, ks, 1, ring_brands)
+                            - _k3_smem(d, k, ks, 0, ring_brands)))
+
+    for ks, ring_brands in ([(x, False) for x in _K3_STAGE_BYTES]
+                            + [(_K3_RING_STAGE_BYTES, True)]):
+        stages = fit(ks, ring_brands)
+        if stages >= _K3_MIN_STAGES:
+            break
+    sizes = (b * _round_up(d, 256), 4 * b, 8 * b, 8 * b * grid,
+             8 * b * grid * k)
+    parts, off = [], 0
+    for size in sizes:
+        parts.append(off)
+        off += _round_up(size, 16)
+    return TopkPlan(grid, ks, stages, ring_brands, off, tuple(parts))
+
+
+def _topk_fn():
+    fn = _build.load("topk_int8").topk_int8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_size_t]
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def topk_int8_args(brands, posts_q, posts_inv, scratch, vals, idxs, k,
+                   n_valid, plan):
+    """The arguments of K3's C entry `topk_int8_fwd` for contiguous CUDA
+    tensors and a plan, on the current stream of the brands' card."""
+    b, d = brands.shape
+    return (brands.data_ptr(), posts_q.data_ptr(), posts_inv.data_ptr(),
+            scratch.data_ptr(), plan.scratch_bytes,
+            (ctypes.c_longlong * 5)(*plan.parts), vals.data_ptr(),
+            idxs.data_ptr(), b, d, n_valid, k, plan.grid, plan.ks,
+            plan.stages, int(plan.ring_brands),
+            torch.cuda.current_stream(brands.device).cuda_stream)
+
+
 def topk_int8_cuda(brands: torch.Tensor, posts_q: torch.Tensor,
                    posts_inv: torch.Tensor, k: int,
                    n_valid: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch `csrc/topk_int8.cu` (two passes) on the current stream."""
+    """Launch `csrc/topk_int8.cu` on the current stream: the brands'
+    quantization, the partial top-k lists and their merge, with the brand
+    scale applied, all inside the C entry; the call makes no PyTorch op
+    besides the allocations of its outputs and scratch."""
     if brands.device.type != "cuda":
         raise ValueError("topk_int8_cuda needs CUDA tensors, got %s"
                          % brands.device)
@@ -305,9 +405,12 @@ def topk_int8_cuda(brands: torch.Tensor, posts_q: torch.Tensor,
         raise ValueError("brands (B, D) and posts_q (N, D) must share D, "
                          "got %s and %s" % (tuple(brands.shape),
                                             tuple(posts_q.shape)))
-    if posts_q.dtype != torch.int8 or posts_inv.dtype != torch.float32:
-        raise ValueError("posts_q must be int8 and posts_inv float32")
-    if posts_q.device != brands.device or posts_inv.device != brands.device:
+    if brands.dtype != torch.float32 or posts_q.dtype != torch.int8 \
+            or posts_inv.dtype != torch.float32:
+        raise ValueError("brands must be float32, posts_q int8 and posts_inv "
+                         "float32")
+    dev = brands.device
+    if posts_q.device != dev or posts_inv.device != dev:
         raise ValueError("brands, posts_q and posts_inv must be on one device")
     b, d = brands.shape
     n = posts_q.shape[0]
@@ -320,35 +423,25 @@ def topk_int8_cuda(brands: torch.Tensor, posts_q: torch.Tensor,
     n_valid = n if n_valid is None else int(n_valid)
     if not 0 <= n_valid <= n:
         raise ValueError("n_valid must lie in [0, %d], got %d" % (n, n_valid))
+    brands = brands.contiguous()
     posts_q = posts_q.contiguous()
     posts_inv = posts_inv.contiguous()
-    qb, b_inv = quantize_rows_int8(brands)
-    qb = qb.contiguous()
-    for t in (qb, posts_q):
-        if t.data_ptr() % 4:
-            raise ValueError("int8 rows must be 4-byte aligned")
-    sms = torch.cuda.get_device_properties(brands.device).multi_processor_count
-    # blocks along the post axis: one wave at two blocks an SM (each holds
-    # ~100 KB of shared memory), and few candidates for the merge pass
-    grid = max(1, min(-(-n_valid // 64), 2 * sms))
-    cand = torch.empty((b, grid, k), dtype=torch.int64, device=brands.device)
-    vals = torch.empty((b, k), dtype=torch.float32, device=brands.device)
-    idxs = torch.empty((b, k), dtype=torch.int32, device=brands.device)
-    lib = _build.load("topk_int8")
-    fn = lib.topk_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(brands.device):
-        stream = torch.cuda.current_stream(brands.device).cuda_stream
-        err = fn(qb.data_ptr(), posts_q.data_ptr(), posts_inv.data_ptr(),
-                 cand.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
-                 b, d, n_valid, k, grid, stream)
+    # whole 16-byte copies where rows are whole 16 bytes, else 4-byte ones
+    if posts_q.data_ptr() % (16 if d % 16 == 0 else 4):
+        raise ValueError("int8 post rows of D=%d must start %d-byte aligned"
+                         % (d, 16 if d % 16 == 0 else 4))
+    plan = topk_int8_plan(b, n_valid, d, k, _sm_count(dev))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        err = _topk_fn()(*topk_int8_args(brands, posts_q, posts_inv, scratch,
+                                         vals, idxs, k, n_valid, plan))
     if err:
         raise RuntimeError("topk_int8 kernel launch failed: CUDA error %d"
                            % err)
     topk_int8_cuda.launches += 1
-    vals = vals * b_inv[:, None]
-    idxs = torch.where(torch.isneginf(vals), torch.zeros_like(idxs), idxs)
     return vals, idxs
 
 

@@ -223,7 +223,8 @@ def fused_eligible(quantize: str, k: int, dim: int) -> bool:
     """Whether a query takes the fused int8 score+top-k
     (`ops.similarity.topk_int8`, the CUDA kernel on the card): an int8
     index, 1 <= k <= 128, and rows of whole 4-byte words (dim % 4 == 0),
-    which the kernel reads. Other queries take `retrieval_topk`."""
+    which the kernel reads; any width. Other queries take
+    `retrieval_topk`."""
     return quantize == "int8" and 1 <= k <= 128 and dim % 4 == 0
 
 

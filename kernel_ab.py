@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Time K4 (the cosine scores) and K1-bwd (the GRU reverse scan) of this
-checkout against those of another checkout, on one card, in turns.
+"""Time K3 (the fused int8 top-k), K4 (the cosine scores) and K1-bwd (the
+GRU reverse scan) of this checkout against those of another checkout, on
+one card, in turns.
 
-    python3 kernel_ab.py BASE_DIR    (from the repository root; one card)
+    python3 kernel_ab.py BASE_DIR [k3] [k4] [k1bwd] [-DNAME=VALUE ...]
+        (from the repository root; one card; all three when none is named)
 
 BASE_DIR holds the other checkout, for example the parent commit unpacked
-with `git archive` into the ignored build/ directory. Its
-csrc/cosine_scores.cu must have the single-pass C entry
-`cosine_scores_fwd(bn, posts, out, B, N, D, stream)`, whose caller divides
-the brands by their norms; its csrc/gru_scan.cu the C entry `gru_scan_bwd`
-of this checkout, with no more carry scratch than this tree's (one (2, B,
-H) slot where its library states none). Both trees' sources are built with
-the same nvcc flags, each kernel is held against its plain version, and
-each quantity is timed in ten pairs of CUDA-event windows, the base and
-this tree taking turns at going first:
+with `git archive` into the ignored build/ directory, or `.` to time this
+tree against itself built with the -D definitions given (for example
+`-DTOPK_SEED=0`, K3 without its first thresholds). Its sources are
+built with this tree's nvcc flags, and those definitions, and called
+through adapters chosen by the parameter count of their C entries:
+  - csrc/topk_int8.cu: `topk_int8_fwd(qb, qp, inv, cand, vals, idx, B, D,
+    n_valid, k, grid, stream)`, whose caller quantizes the brands and
+    applies their scale (the commits before K3's ring), or this tree's
+    entry, which does both itself;
+  - csrc/cosine_scores.cu: the single-pass `cosine_scores_fwd(bn, posts,
+    out, B, N, D, stream)`, whose caller divides the brands by their norms,
+    or this tree's entry with the D split;
+  - csrc/gru_scan.cu: the C entry `gru_scan_bwd` of this checkout, with no
+    more carry scratch than this tree's (one (2, B, H) slot where its
+    library states none).
+Each kernel is held against its plain version, and each quantity is timed
+in ten pairs, the base and this tree taking turns at going first:
+  - K3 at 51 x 1,000,000 x 1024, k = 10 and k = 128, and 51 x 4,080 x 1024
+    (the freshly built index), k = 10: the wrapper's call (CUDA-event windows) and the device
+    time of the call's kernels, the union of their intervals in
+    torch.profiler, the quantization included;
   - K4 at 51 x 816 x 1024 (the test split) and 51 x 1,000,000 x 1024: the
-    wrapper's call (each tree's Python around its C entry), the C entry
-    alone on buffers made once, and the device time of the C entry's
-    kernels, the union of their intervals in torch.profiler;
+    wrapper's call, the C entry alone on buffers made once, and (two
+    profiles a side) the device time of the C entry's kernels;
   - K1-bwd at T=64, H=1024, float32, B=8 (the recipe's training batch) and
     B=128 (the trainer's default batch): the C entry on buffers made once;
     then this tree's backward at B=128 with each number of batch rows a
@@ -60,18 +73,18 @@ def _entry_params(src, name):
     return len([p for p in m.group(1).split(",") if p.strip()])
 
 
-def build_base(base):
-    """Start nvcc on the base tree's two sources; returns {name: (process,
-    library path)}."""
+def build_base(base, names, defines=()):
+    """Start nvcc on the base tree's named sources, with the -D definitions
+    given; returns {name: (process, library path)}."""
     from fancyrec_tpu_torch.ops import _build
     out_dir = os.path.join(HERE, "build", "kernel_ab_base")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ("cosine_scores", "gru_scan"):
+    for name in names:
         src = os.path.join(base, "fancyrec_tpu_torch", "csrc", name + ".cu")
         lib = os.path.join(out_dir, "lib%s.so" % name)
         procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return procs
 
@@ -105,36 +118,137 @@ def verdict(name, got):
             "wins": wins, "pairs": PAIRS, "verdict": word}
 
 
-def device_ms(fn, calls):
-    """The union of the intervals of the kernels that `calls` calls of fn
-    launch, in torch.profiler, a call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import _union_ms
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.time_range.end > e.time_range.start]
-    return _union_ms(spans) / calls if spans else float("nan")
+def with_entry(module, name, fn, call):
+    """Run `call` with `module.name` (a function returning a C entry)
+    returning `fn` instead: this tree's wrapper around the base's entry."""
+    saved = getattr(module, name)
+    setattr(module, name, lambda: fn)
+    try:
+        return call()
+    finally:
+        setattr(module, name, saved)
 
 
-def k4(dev, base_lib, results):
+def k3(dev, base_lib, params, results):
     import torch
     import chip_smoke as cs
+    from fancyrec_tpu_torch.ops import similarity as sim
+    from fancyrec_tpu_torch.ops.similarity import (
+        quantize_rows_int8, topk_int8_cuda)
+
+    if params == 12:
+        def base_wrapper(brands, posts_q, posts_inv, k):
+            # the base tree's wrapper: checks, the brands' quantization,
+            # the entry's argument types set, one foreign call, the brand
+            # scale and the filler's index
+            if brands.device.type != "cuda":
+                raise ValueError("needs CUDA tensors")
+            if brands.dim() != 2 or posts_q.dim() != 2 \
+                    or brands.shape[1] != posts_q.shape[1]:
+                raise ValueError("brands and posts_q must share D")
+            if posts_q.dtype != torch.int8 or posts_inv.dtype != torch.float32:
+                raise ValueError("posts_q must be int8, posts_inv float32")
+            b, d = brands.shape
+            n_valid = posts_q.shape[0]
+            posts_q = posts_q.contiguous()
+            posts_inv = posts_inv.contiguous()
+            qb, b_inv = quantize_rows_int8(brands)
+            qb = qb.contiguous()
+            sms = torch.cuda.get_device_properties(
+                brands.device).multi_processor_count
+            grid = max(1, min(-(-n_valid // 64), 2 * sms))
+            cand = torch.empty((b, grid, k), dtype=torch.int64,
+                               device=brands.device)
+            vals = torch.empty((b, k), dtype=torch.float32,
+                               device=brands.device)
+            idxs = torch.empty((b, k), dtype=torch.int32, device=brands.device)
+            fn = base_lib.topk_int8_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            with torch.cuda.device(brands.device):
+                stream = torch.cuda.current_stream(brands.device).cuda_stream
+                err = fn(qb.data_ptr(), posts_q.data_ptr(),
+                         posts_inv.data_ptr(), cand.data_ptr(),
+                         vals.data_ptr(), idxs.data_ptr(), b, d, n_valid, k,
+                         grid, stream)
+            if err:
+                raise RuntimeError("base topk_int8 failed: CUDA error %d"
+                                   % err)
+            vals = vals * b_inv[:, None]
+            idxs = torch.where(torch.isneginf(vals), torch.zeros_like(idxs),
+                               idxs)
+            return vals, idxs
+    else:
+        fn_b = base_lib.topk_int8_fwd
+        fn_b.argtypes = sim._topk_fn().argtypes
+        fn_b.restype = ctypes.c_int
+
+        def base_wrapper(brands, posts_q, posts_inv, k):
+            return with_entry(sim, "_topk_fn", fn_b, lambda: topk_int8_cuda(
+                brands, posts_q, posts_inv, k))
+
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    for n, ks, calls in ((cs.N_POSTS, (cs.TOPK, 128), 20),
+                         (4080, (cs.TOPK,), 50)):
+        brands = torch.randn(cs.N_BRANDS, cs.DIM, generator=g, device=dev)
+        posts_q = torch.empty(n, cs.DIM, dtype=torch.int8, device=dev)
+        posts_inv = torch.empty(n, device=dev)
+        for lo in range(0, n, 1 << 17):
+            hi = min(lo + (1 << 17), n)
+            posts_q[lo:hi], posts_inv[lo:hi] = quantize_rows_int8(
+                torch.randn(hi - lo, cs.DIM, generator=g, device=dev))
+        for k in ks:
+            k3_case(brands, posts_q, posts_inv, k, calls, base_wrapper,
+                    results)
+        del brands, posts_q, posts_inv
+        torch.cuda.empty_cache()
+
+
+def k3_case(brands, posts_q, posts_inv, k, calls, base_wrapper, results):
+    """K3 of both trees at one shape: each against the plain version, then
+    ten pairs of wrapper calls and of device times."""
+    import chip_smoke as cs
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda, topk_int8_ref
+
+    shape = "%d x %d x %d, k=%d" % (brands.shape[0], posts_q.shape[0],
+                                    brands.shape[1], k)
+    call = {"base": lambda: base_wrapper(brands, posts_q, posts_inv, k),
+            "this": lambda: topk_int8_cuda(brands, posts_q, posts_inv, k)}
+    with torch.no_grad():
+        vp, ip = topk_int8_ref(brands, posts_q, posts_inv, k)
+        for side, fn in call.items():
+            vk, ik = fn()
+            torch.cuda.synchronize()
+            err = (vk - vp).abs().max().item()
+            if not torch.equal(ik, ip) or not err <= cs.K3_TOL:
+                fail("K3 %s, %s tree: indices differ or max err %.3g > %g"
+                     % (shape, side, err, cs.K3_TOL))
+        results.append(verdict("K3 %s, wrapper call" % shape, pairs(
+            lambda: cs.cuda_ms(call["base"], calls),
+            lambda: cs.cuda_ms(call["this"], calls))))
+        results.append(verdict(
+            "K3 %s, device time (profiler union a call)" % shape, pairs(
+                lambda: cs.device_ms(call["base"], 5),
+                lambda: cs.device_ms(call["this"], 5))))
+
+
+def k4(dev, base_lib, params, results):
+    import torch
+    import chip_smoke as cs
+    from fancyrec_tpu_torch.ops import similarity as sim
     from fancyrec_tpu_torch.ops.similarity import (
         _cosine_fn, _sm_count, cosine_scores_cuda, cosine_scores_ref,
         cosine_scratch_len, cosine_slices)
 
+    split = params == 9           # the base's entry is this tree's
+
     def base_entry():
         fn = base_lib.cosine_scores_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = (_cosine_fn().argtypes if split else
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         return fn
 
@@ -143,6 +257,9 @@ def k4(dev, base_lib, results):
     def base_wrapper(brands, posts):
         # the base tree's wrapper: checks, the brands' normalization, the
         # entry's argument types set, one foreign call
+        if split:
+            return with_entry(sim, "_cosine_fn", base_fn,
+                              lambda: cosine_scores_cuda(brands, posts))
         if brands.device.type != "cuda":
             raise ValueError("needs CUDA tensors")
         if brands.dim() != 2 or posts.dim() != 2 \
@@ -189,11 +306,13 @@ def k4(dev, base_lib, results):
             scratch = torch.empty(
                 max(1, cosine_scratch_len(cs.N_BRANDS, n, s)), device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            args_b = (bn.data_ptr(), posts.data_ptr(), out_b.data_ptr(),
-                      cs.N_BRANDS, n, cs.DIM, stream)
             args_t = ((bn if s == 1 else brands).data_ptr(), posts.data_ptr(),
                       out_t.data_ptr(), scratch.data_ptr(), cs.N_BRANDS, n,
                       cs.DIM, s, stream)
+            args_b = ((args_t[0], posts.data_ptr(), out_b.data_ptr())
+                      + args_t[3:] if split else
+                      (bn.data_ptr(), posts.data_ptr(), out_b.data_ptr(),
+                       cs.N_BRANDS, n, cs.DIM, stream))
             fn_t = _cosine_fn()
             entry_b = lambda: base_fn(*args_b)   # noqa: E731
             entry_t = lambda: fn_t(*args_t)      # noqa: E731
@@ -207,7 +326,7 @@ def k4(dev, base_lib, results):
                 lambda: cs.cuda_ms(entry_t, calls))))
             dev_ms = {"base": [], "this": []}
             for side in ("base", "this", "this", "base"):
-                dev_ms[side].append(device_ms(
+                dev_ms[side].append(cs.device_ms(
                     entry_b if side == "base" else entry_t, calls))
             log("K4 %s, device time of the C entry's kernels (profiler "
                 "union a call, two profiles each): base %s ms, this tree "
@@ -303,42 +422,60 @@ def k1_bwd(dev, base_lib, results):
         torch.cuda.empty_cache()
 
 
+# kernel: (its source, its C entry, the entry's parameter counts taken)
+KERNELS = {"k3": ("topk_int8", "topk_int8_fwd", (12, 17)),
+           "k4": ("cosine_scores", "cosine_scores_fwd", (7, 9)),
+           "k1bwd": ("gru_scan", "gru_scan_bwd", (14,))}
+
+
 def main():
-    if len(sys.argv) != 2:
-        sys.exit("usage: python3 kernel_ab.py BASE_DIR")
+    defines = [a for a in sys.argv[2:] if a.startswith("-D")]
+    names = [a for a in sys.argv[2:] if a not in defines] or list(KERNELS)
+    if len(sys.argv) < 2 or not set(names) <= set(KERNELS):
+        sys.exit("usage: python3 kernel_ab.py BASE_DIR [k3] [k4] [k1bwd] "
+                 "[-DNAME=VALUE ...]")
     base = os.path.abspath(sys.argv[1])
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: torch.cuda.is_available() is false: needs a card")
     sys.path.insert(0, HERE)
-    import chip_smoke as cs
     from fancyrec_tpu_torch.device import resolve_device
     from fancyrec_tpu_torch.ops import _build
 
-    with open(os.path.join(base, "fancyrec_tpu_torch", "csrc",
-                           "cosine_scores.cu")) as f:
-        if _entry_params(f.read(), "cosine_scores_fwd") != 7:
-            fail("the base's cosine_scores_fwd is not the single-pass "
-                 "entry (bn, posts, out, B, N, D, stream)")
+    params = {}
+    for name in names:
+        src, entry, taken = KERNELS[name]
+        with open(os.path.join(base, "fancyrec_tpu_torch", "csrc",
+                               src + ".cu")) as f:
+            params[name] = _entry_params(f.read(), entry)
+        if params[name] not in taken:
+            fail("the base's %s takes %s parameters; the adapters take %s"
+                 % (entry, params[name], taken))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     smi_line = smi.stdout.strip().splitlines()[0]
     dev = resolve_device("cuda")
     t0 = time.time()
-    procs = build_base(base)
-    _build.build(["cosine_scores", "gru_scan"])
+    sources = [KERNELS[n][0] for n in names]
+    procs = build_base(base, sources, defines)
+    _build.build(sources)
     libs = {}
     for name, (proc, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             fail("the base's %s did not build:\n%s" % (name, out))
         libs[name] = ctypes.CDLL(lib)
-    log("both trees' kernels built in %.1f s; %s" % (time.time() - t0,
-                                                       smi_line))
+    log("both trees' kernels built in %.1f s (the base with %s); %s"
+        % (time.time() - t0, " ".join(defines) or "no definitions",
+           smi_line))
     results = []
-    k4(dev, libs["cosine_scores"], results)
-    k1_bwd(dev, libs["gru_scan"], results)
+    if "k3" in names:
+        k3(dev, libs["topk_int8"], params["k3"], results)
+    if "k4" in names:
+        k4(dev, libs["cosine_scores"], params["k4"], results)
+    if "k1bwd" in names:
+        k1_bwd(dev, libs["gru_scan"], results)
     print(smi_line)
     print(json.dumps({"device": smi_line, "results": results}), flush=True)
 

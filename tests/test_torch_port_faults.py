@@ -6,7 +6,8 @@ against it on the CPU:
 2. index build and add read a reference torch checkpoint;
 3. an int8 query takes the fused top-k only where its kernel takes the
    shape (`fused_eligible`), so a 30-wide int8 index serves through
-   `retrieval_topk` as in the JAX package;
+   `retrieval_topk` as in the JAX package, and the kernel takes every
+   width a 4-byte-word index has (4096 too);
 4. `--validate_split check` validates on the train split.
 """
 
@@ -24,6 +25,7 @@ from fancyrec_tpu.serving.index import (
 from fancyrec_tpu_torch.data.tokenizer import write_minimal_bert_vocab
 from fancyrec_tpu_torch.io.bigfile import BigFileReader, BigFileWriter
 from fancyrec_tpu_torch.io.vocab import Vocabulary, load_vocab, save_vocab
+from fancyrec_tpu_torch.ops import similarity as tsim
 from fancyrec_tpu_torch.serving import index as sindex
 from fancyrec_tpu_torch.train import checkpoints, trainer
 from fancyrec_tpu_torch.utils.fixture import make_fixture
@@ -152,9 +154,31 @@ def test_index_build_and_add_from_a_reference_checkpoint_match_jax(
 @pytest.mark.parametrize("quantize,k,dim,fused", [
     ("int8", 10, 1024, True), ("int8", 10, 30, False),
     ("int8", 128, 32, True), ("int8", 129, 1024, False),
-    ("int8", 0, 1024, False), ("", 10, 1024, False)])
+    ("int8", 0, 1024, False), ("", 10, 1024, False),
+    # K3 takes any width: rows too wide for its shared memory come through
+    # its ring beside the posts
+    ("int8", 128, 4096, True), ("int8", 10, 4096, True),
+    ("int8", 128, 2180, True), ("int8", 10, 4100, True)])
 def test_fused_eligible(quantize, k, dim, fused):
     assert sindex.fused_eligible(quantize, k, dim) is fused
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 128])
+def test_k3_plans_every_width_fused_eligible_admits(k):
+    """Every width `fused_eligible` admits has a launch that fits an H100
+    block's shared memory: the brand rows in shared memory up to a width,
+    through the ring past it, with at least 4 ring stages either way."""
+    for d in (4, 36, 1024, 2048, 2176, 3136, 4096, 4100, 16384):
+        assert sindex.fused_eligible("int8", k, d)
+        plan = tsim.topk_int8_plan(51, 10_000, d, k, 132)
+        assert plan.stages >= 4
+        assert tsim._k3_smem(d, k, plan.ks, plan.stages,
+                             plan.ring_brands) <= tsim._K3_SMEM
+        assert plan.ring_brands == all(
+            tsim._k3_smem(d, k, w, 4, False) > tsim._K3_SMEM
+            for w in tsim._K3_STAGE_BYTES)
+        if d in (1024, 4096):   # the serving width; one past every k's
+            assert plan.ring_brands == (d == 4096)
 
 
 def _write_index(path, rows, brands, brand_embs):
@@ -168,7 +192,7 @@ def _write_index(path, rows, brands, brand_embs):
                    "n_posts": len(rows)}, f)
 
 
-@pytest.mark.parametrize("dim,fused", [(30, False), (32, True)])
+@pytest.mark.parametrize("dim,fused", [(30, False), (32, True), (4096, True)])
 def test_int8_query_routes_by_shape_and_matches_jax(tmp_path, monkeypatch,
                                                     dim, fused):
     rng = np.random.RandomState(dim)

@@ -127,3 +127,49 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="k <= 128"):
         tsim.topk_int8(torch.from_numpy(brands), torch.from_numpy(qp),
                        torch.from_numpy(p_inv), 129)
+
+
+@pytest.mark.parametrize("b,n,d,k,grid,ks,stages,ring", [
+    (51, 1_000_000, 1024, 10, 132, 256, 4, False),   # the serving shape
+    (51, 4080, 1024, 10, 32, 256, 4, False),   # the freshly built index
+    (130, 650, 1024, 128, 6, 128, 6, False),   # three brand tiles, k = 128
+    (51, 900, 2048, 128, 8, 128, 6, True),     # rows too wide beside k = 128
+    (51, 1000, 4096, 128, 8, 128, 6, True),    # the brands through the ring
+    (51, 1000, 4096, 10, 8, 128, 8, True),
+    (3, 50, 4100, 10, 1, 128, 8, True),        # wide, not 16-byte rows
+    (3, 5, 36, 10, 1, 256, 6, False),          # a tiny N, not 16-byte rows
+    (4, 0, 128, 8, 1, 256, 6, False),          # no valid post: one block
+])
+def test_topk_int8_plan(b, n, d, k, grid, ks, stages, ring):
+    plan = tsim.topk_int8_plan(b, n, d, k, 132)
+    assert (plan.grid, plan.ks, plan.stages, plan.ring_brands) == (
+        grid, ks, stages, ring)
+    assert tsim._k3_smem(d, k, ks, stages, ring) <= tsim._K3_SMEM
+    if stages < 8:       # as many stages as fit
+        assert tsim._k3_smem(d, k, ks, stages + 1, ring) > tsim._K3_SMEM
+    if ring:             # no stage width fits 4 stages beside the brands
+        assert all(tsim._k3_smem(d, k, w, 4, False) > tsim._K3_SMEM
+                   for w in tsim._K3_STAGE_BYTES)
+    # quantized brands in rows of round_up(D, 256), their scales, their
+    # 64-bit first thresholds, each block's best key of each brand and the
+    # blocks' lists of 64-bit keys, each part on 16 bytes, in that order
+    sizes = (b * -(-d // 256) * 256, 4 * b, 8 * b, 8 * b * grid,
+             8 * b * grid * k)
+    want, off = [], 0
+    for size in sizes:
+        want.append(off)
+        off += -(-size // 16) * 16
+    assert plan.parts == tuple(want) and plan.scratch_bytes == off
+
+
+def test_topk_int8_plan_refuses_what_the_kernel_does_not_take():
+    for k, d in ((0, 1024), (129, 1024), (10, 30), (10, 0)):
+        with pytest.raises(ValueError, match="K3 takes"):
+            tsim.topk_int8_plan(51, 1000, d, k, 132)
+    # the plain version answers at a width the ring takes, as the JAX
+    # kernel does
+    brands, posts = _case(13, b=2, n=64, d=4096)
+    qp, p_inv = tsim.quantize_rows_int8_np(posts)
+    vals, idxs = tsim.topk_int8(torch.from_numpy(brands), torch.from_numpy(qp),
+                                torch.from_numpy(p_inv), 128)
+    assert vals.shape == (2, 128) and (idxs[:, 64:] == 0).all()
