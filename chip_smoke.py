@@ -16,13 +16,15 @@ Phases:
      backward with each number of slices of its carry contraction (two
      backward calls must give the same bits); the cosine at the test
      split's 816 posts (split over D) and at 1M posts (one pass); the
-     brand dropout's masks, as both of its kernels draw them, bit for bit
-     against the plain Philox mask, and its integer work counted from the
-     SASS; K3 at 51 x 1M x 1024 (two calls bit-identical, the quantization
-     inside its C entry against the plain one, its kernels in one profiled
-     call); edge shapes of every kernel (K3 up to 33,024 wide, its brands
-     through its ring), and int8 indexes 30 wide (which K3 does not take)
-     and 4096 wide (which it does) served on the card as on the CPU;
+     brand dropout's keep bits, as its forward writes them, bit for bit
+     against the packed plain Philox mask, its backward from those bits,
+     and its forward's integer work counted from the SASS of its per-block
+     step beside a timed Philox probe; K3 at 51 x 1M x 1024 (two calls
+     bit-identical, the quantization inside its C entry against the plain
+     one, its kernels in one profiled call); edge shapes of every kernel
+     (K3 up to 33,024 wide, its brands through its ring), and int8 indexes
+     30 wide (which K3 does not take) and 4096 wide (which it does) served
+     on the card as on the CPU;
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -262,6 +264,7 @@ def check_topk(dev):
             "source": "fancyrec_tpu_torch/csrc/topk_int8.cu",
             "replaces": "fancyrec_tpu/ops/similarity.py:242",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "entry_ms": entry_ms, "device_ms": dev_ms,
             **roofline(nbytes, ops, INT8_OPS), "library_ms": None}
 
 
@@ -270,12 +273,13 @@ def topk_entry(brands, posts_q, posts_inv, k, n_valid=None):
     (a call of it, vals, idxs, scratch, plan). Not counted as a launch of
     the wrapper."""
     import torch
+    from fancyrec_tpu_torch.ops import _build
     from fancyrec_tpu_torch.ops.similarity import (
-        _sm_count, _topk_fn, topk_int8_args, topk_int8_plan)
+        _topk_fn, topk_int8_args, topk_int8_plan)
 
     (b, d), dev = brands.shape, brands.device
     n_valid = posts_q.shape[0] if n_valid is None else n_valid
-    plan = topk_int8_plan(b, n_valid, d, k, _sm_count(dev))
+    plan = topk_int8_plan(b, n_valid, d, k, _build.sm_count(dev))
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     vals = torch.empty((b, k), device=dev)
     idxs = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -376,11 +380,12 @@ def check_cosine(dev):
     (`cosine_slices` > 1); two calls there give the same bits."""
     import torch
     import torch.nn.functional as F
+    from fancyrec_tpu_torch.ops import _build
     from fancyrec_tpu_torch.ops.similarity import (
-        _sm_count, cosine_scores_cuda, cosine_scores_ref, cosine_slices)
+        cosine_scores_cuda, cosine_scores_ref, cosine_slices)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    sms = _sm_count(dev)
+    sms = _build.sm_count(dev)
     # edges: one brand, a ragged post tile, D not a multiple of the stage,
     # an all-zero post row (NaN in the same column), two brand tiles; then
     # the few-post shapes of the split path: the test split, one post, D
@@ -457,11 +462,12 @@ def cosine_entry_ms(brands, posts):
     which holds the card at few posts. Not counted as a launch of the
     wrapper."""
     import torch
+    from fancyrec_tpu_torch.ops import _build
     from fancyrec_tpu_torch.ops.similarity import (
-        _cosine_fn, _sm_count, cosine_scratch_len, cosine_slices)
+        _cosine_fn, cosine_scratch_len, cosine_slices)
 
     (b, d), n, dev = brands.shape, posts.shape[0], brands.device
-    s = cosine_slices(b, n, d, _sm_count(dev))
+    s = cosine_slices(b, n, d, _build.sm_count(dev))
     if s == 1:
         brands = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
     out = torch.empty((b, n), device=dev)
@@ -688,155 +694,335 @@ def sweep_gru_rows(dev):
 
 
 def check_aspect_dropout(dev):
-    """K2 at the training shape (B=8, A=2000, C=1024, keep 0.5): the masks
-    that both kernels draw equal the plain Philox mask bit for bit, and
-    outputs and grads agree with the plain versions."""
+    """K2 at the training shape (B=8, A=2000, C=1024, keep 0.5): the keep
+    bits the forward writes equal the packed plain Philox mask bit for bit;
+    the forward (with and without bits) and the backward from those bits
+    agree with the plain versions, and two calls give the same bits. Times:
+    the wrapper calls, the C entries alone on buffers made once, and the
+    device time of their kernels. Bounds: the forward's from the SASS of
+    its per-block step (`k2_sass_ops`), the backward's from its bytes."""
     import torch
-    from fancyrec_tpu_torch.ops.brand_dropout import (
-        aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
-        aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref, dropout_mask,
-        keep_threshold)
+    from fancyrec_tpu_torch.ops import brand_dropout as bd
+    from fancyrec_tpu_torch.ops import _build
 
     b, a, c = B_TRAIN, N_ASPECTS, DIM
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     w = torch.randn(b, a, generator=g, device=dev)
     asp = torch.randn(a, c, generator=g, device=dev)
     gr = torch.randn(b, c, generator=g, device=dev)
-    thr, scale = keep_threshold(a, KEEP)
+    thr, _ = bd.keep_threshold(a, KEEP)
+    plan = bd.aspect_dropout_plan(b, a, c, _build.sm_count(dev))
+    log("aspect_dropout plan %s: the forward's grid (C / 128, splits, B / 8) "
+        "of 256 threads, then the split sum (PDL); the backward's %s"
+        % (plan, "persistent blocks of 256 threads taking A's groups of 4 "
+           "aspects in turn" if plan.bwd_blocks else "block a group of 4 "
+           "aspects"))
     with torch.no_grad():
-        want = torch.cat([dropout_mask(K2_SEED, thr, b, a, c, lo,
-                                       min(lo + 250, a), dev)
+        mask = torch.cat([bd.dropout_mask(K2_SEED, thr, b, a, c, lo,
+                                          min(lo + 250, a), dev)
                           for lo in range(0, a, 250)], dim=1)
-        # isolate the mask each kernel draws: with w = 1 and one aspect row
-        # of ones, out = s * m[:, a*, :]; with w one-hot in row b* and g = 1,
-        # dasp = s * m[b*]
-        ones_w = torch.ones(b, a, device=dev)
-        row = torch.zeros(a, c, device=dev)
-        got_f = torch.empty_like(want)
-        for k in range(a):
-            row[k] = 1.0
-            got_f[:, k] = aspect_dropout_fwd_cuda(ones_w, row, K2_SEED, KEEP) > 0
-            row[k] = 0.0
-        got_b = torch.empty_like(want)
-        for k in range(b):
-            onehot = torch.zeros(b, a, device=dev)
-            onehot[k] = 1.0
-            got_b[k] = aspect_dropout_bwd_cuda(
-                onehot, asp, torch.ones(b, c, device=dev), K2_SEED, KEEP)[1] > 0
+        want_bits = bd.pack_keep_bits(mask)
+        out_k, bits_k = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
+                                                   with_bits=True)
+        out_k2, bits_k2 = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
+                                                     with_bits=True)
+        out_nb = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP)
         torch.cuda.synchronize()
-        if not (torch.equal(got_f, want) and torch.equal(got_b, want)):
-            fail("aspect dropout masks differ from the plain Philox mask: "
-                 "forward %d, backward %d of %d elements"
-                 % (int((got_f != want).sum()), int((got_b != want).sum()),
-                    want.numel()))
-        log("aspect_dropout: forward and backward kernel masks equal the "
-            "plain mask bit for bit (%d elements, kept share %.5f)"
-            % (want.numel(), want.float().mean().item()))
-        out_k = aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP)
-        out_p = aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP)
-        dw_k, dasp_k = aspect_dropout_bwd_cuda(w, asp, gr, K2_SEED, KEEP)
-        dw_p, dasp_p = aspect_dropout_bwd_ref(w, asp, gr, K2_SEED, KEEP)
+        if not torch.equal(bits_k, want_bits):
+            diff = (bits_k != want_bits)
+            fail("aspect dropout: the forward's keep bits differ from the "
+                 "packed plain mask in %d of %d words"
+                 % (int(diff.sum()), diff.numel()))
+        if not (torch.equal(out_k, out_k2) and torch.equal(bits_k, bits_k2)
+                and torch.equal(out_k, out_nb)):
+            fail("aspect dropout: two forward calls (with and without bits) "
+                 "differ")
+        log("aspect_dropout: the forward's keep bits equal the packed plain "
+            "mask bit for bit (%d elements, %d words, kept share %.5f); two "
+            "calls and the call without bits give the same output bits"
+            % (mask.numel(), want_bits.numel(), mask.float().mean().item()))
+        out_p = bd.aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP)
+        dw_k, dasp_k = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
+        dw_k2, dasp_k2 = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
+        dw_p, dasp_p = bd.aspect_dropout_bwd_ref(w, asp, gr, K2_SEED, KEEP)
         torch.cuda.synchronize()
         err_f = (out_k - out_p).abs().max().item()
         err_b = max((dw_k - dw_p).abs().max().item(),
                     (dasp_k - dasp_p).abs().max().item())
-        log("aspect_dropout: max |kernel - plain| forward %.3g, backward %.3g "
+        log("aspect_dropout: max |kernel - plain| forward %.3g, backward from "
+            "the bits against the plain backward from the seed %.3g "
             "(tolerance %g)" % (err_f, err_b, K2_TOL))
         if not (err_f <= K2_TOL and err_b <= K2_TOL):
             fail("aspect dropout kernels disagree with their plain versions")
-        fwd_ms = cuda_ms(lambda: aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP),
-                         50)
-        bwd_ms = cuda_ms(lambda: aspect_dropout_bwd_cuda(w, asp, gr, K2_SEED,
-                                                         KEEP), 50)
-        fwd_plain = cuda_ms(lambda: aspect_dropout_fwd_ref(w, asp, K2_SEED,
-                                                           KEEP), 3)
-        bwd_plain = cuda_ms(lambda: aspect_dropout_bwd_ref(w, asp, gr, K2_SEED,
-                                                           KEEP), 3)
-    log("aspect_dropout: forward kernel %.4f ms (plain %.3f ms), backward "
-        "kernel %.4f ms (plain %.3f ms)" % (fwd_ms, fwd_plain, bwd_ms,
-                                            bwd_plain))
-    # integer work: the SASS instructions of one Philox4x32-10 block and its
-    # 4 keep compares (`philox_sass_ops`) by the pipe that issues them,
-    # IMAD* on the FMA pipe and the rest (LOP3, IADD3, ISETP, ...) on the
-    # ALU pipe, each 64 a clock an SM (the CUDA C Programming Guide's
-    # throughput table for compute capability 9.0, against 256 float32
-    # flops), the two pipes issuing side by side: the busier pipe bounds the
-    # time, as do the products' float32 flops on theirs. Each integer
-    # instruction of the busier pipe counts as F32_FLOPS / INT32_OPS flops
-    pipes = philox_sass_ops()
+        if not (torch.equal(dw_k, dw_k2) and torch.equal(dasp_k, dasp_k2)):
+            fail("aspect dropout: two backward calls differ")
+        # a wrapper call is host-bound here: the median of 5 windows, as for
+        # K3 and K4
+        fwd_ms = statistics.median(cuda_ms(lambda: bd.aspect_dropout_fwd_cuda(
+            w, asp, K2_SEED, KEEP, with_bits=True), 50) for _ in range(5))
+        bwd_ms = statistics.median(cuda_ms(lambda: bd.aspect_dropout_bwd_cuda(
+            w, asp, gr, bits_k, KEEP), 50) for _ in range(5))
+        entry = k2_entries(w, asp, gr, K2_SEED, KEEP)
+        entry_ms = {k: cuda_ms(fn, 50) for k, fn in entry.items()}
+        dev_ms = {k: device_ms(fn, 20) for k, fn in entry.items()}
+        fwd_plain = cuda_ms(lambda: bd.aspect_dropout_fwd_ref(
+            w, asp, K2_SEED, KEEP, with_bits=True), 3)
+        bwd_plain = cuda_ms(lambda: bd.aspect_dropout_bwd_bits_ref(
+            w, asp, gr, bits_k, KEEP), 3)
+    log("aspect_dropout: wrapper call (median of 5) forward (with bits) "
+        "%.4f ms, backward %.4f ms, forward + backward %.4f ms; C entry alone forward %.4f, "
+        "backward %.4f, forward + backward %.4f ms; device time (profiler "
+        "union a call) forward %.4f, backward %.4f, both %.4f ms; plain "
+        "forward %.3f ms, plain backward from the bits %.3f ms"
+        % (fwd_ms, bwd_ms, fwd_ms + bwd_ms, entry_ms["fwd"], entry_ms["bwd"],
+           entry_ms["both"], dev_ms["fwd"], dev_ms["bwd"], dev_ms["both"],
+           fwd_plain, bwd_plain))
+    # the forward's integer work: the SASS of its per-block step (one
+    # Philox4x32-10 block, its 4 keep compares, the kept products and the
+    # nibble), as compiled in the loop, by pipe: IMAD* on the FMA pipe, the
+    # rest of the integer instructions on the ALU pipe, each 64 a clock an
+    # SM (the CUDA C Programming Guide's throughput table for compute
+    # capability 9.0), the float products at 128 a clock; the uniform
+    # datapath apart. The pipes issue side by side: the busiest bounds the
+    # time. An integer instruction counts as F32_FLOPS / INT32_OPS flops,
+    # an FFMA as 2
+    sass = k2_sass_ops(dev)
+    step = sass["step"]
     blocks = b * a * c // 4
-    int_flops = blocks * max(pipes.values()) * F32_FLOPS / INT32_OPS
-    bounds = [roofline(4 * (w.numel() + asp.numel() + out_k.numel()),
-                       max(int_flops, 2 * b * a * c), F32_FLOPS),
+    kept = int(mask.sum())
+    fwd_ops = max(blocks * max(step["alu"], step["fma"]) * F32_FLOPS
+                  / INT32_OPS, blocks * 2 * step["float"], 2 * kept)
+    bounds = [roofline(4 * (w.numel() + asp.numel() + out_k.numel()
+                            + bits_k.numel()), fwd_ops, F32_FLOPS),
               roofline(4 * (w.numel() + asp.numel() + gr.numel()
-                            + dw_k.numel() + dasp_k.numel()),
-                       max(int_flops, 4 * b * a * c), F32_FLOPS)]
-    log("aspect_dropout: SASS instructions a Philox block with its 4 "
-        "compares: %d on the FMA pipe, %d on the ALU pipe; %d blocks a call; "
-        "bounds %.4f ms forward, %.4f ms backward (%s)"
-        % (pipes["fma"], pipes["alu"], blocks, bounds[0]["bound_ms"],
-           bounds[1]["bound_ms"], bounds[0]["bound_by"]))
+                            + bits_k.numel() + dw_k.numel()
+                            + dasp_k.numel()), 4 * kept, F32_FLOPS)]
+    log("aspect_dropout: bounds %.4f ms forward (%s), %.4f ms backward (%s); "
+        "the wrapper calls at %.0f%% and %.0f%% of them, the C entries alone "
+        "at %.0f%% and %.0f%%"
+        % (bounds[0]["bound_ms"], bounds[0]["bound_by"],
+           bounds[1]["bound_ms"], bounds[1]["bound_by"],
+           100 * bounds[0]["bound_ms"] / fwd_ms,
+           100 * bounds[1]["bound_ms"] / bwd_ms,
+           100 * bounds[0]["bound_ms"] / entry_ms["fwd"],
+           100 * bounds[1]["bound_ms"] / entry_ms["bwd"]))
     common = {"route": "cuda",
               "source": "fancyrec_tpu_torch/csrc/aspect_dropout.cu",
               "library_ms": None}
+    # `ms` is the wrapper call, as for every kernel; beside it the C entry
+    # alone on buffers made once and the device time of its kernels
     return [
         {"name": "aspect_dropout_fwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:130",
          "max_abs_err": err_f, "ms": fwd_ms, "plain_ms": fwd_plain,
+         "entry_ms": entry_ms["fwd"], "device_ms": dev_ms["fwd"],
          **bounds[0], **common},
         {"name": "aspect_dropout_bwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:175",
          "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": bwd_plain,
+         "entry_ms": entry_ms["bwd"], "device_ms": dev_ms["bwd"],
          **bounds[1], **common},
     ]
 
 
-def philox_sass_ops():
-    """SASS instructions that one Philox4x32-10 block and its 4 keep
-    compares take in the built K2 source, by pipe: {"fma": the IMAD*
-    instructions, "alu": the rest}. A probe kernel that calls its `keep4`
-    once, against one that only loads and stores the same words, both
-    compiled with the kernels' nvcc flags and read with cuobjdump."""
+def k2_entries(w, asp, g, seed, keep):
+    """K2's C entries on buffers made once: {"fwd": the forward with bits,
+    "bwd": the backward from those bits, "both": one then the other}, each
+    a call without the wrappers' Python (checks, allocations, the stream
+    lookup). Not counted as launches of the wrappers."""
+    import torch
+    from fancyrec_tpu_torch.ops import _build
+    from fancyrec_tpu_torch.ops import brand_dropout as bd
+
+    (b, a), c, dev = w.shape, asp.shape[1], w.device
+    plan = bd.aspect_dropout_plan(b, a, c, _build.sm_count(dev))
+    out = torch.empty((b, c), device=dev)
+    bits = torch.empty((b, a, -(-c // 32)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan.scratch_floats, device=dev)
+    dw, dasp = torch.empty_like(w), torch.empty_like(asp)
+    fwd_args = bd.aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed,
+                                          keep, plan)
+    bwd_args = bd.aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep,
+                                          plan)
+    fwd_fn, bwd_fn = bd._fwd_fn(), bd._bwd_fn()
+    if fwd_fn(*fwd_args) or bwd_fn(*bwd_args):
+        fail("the aspect_dropout C entries failed")
+    keep_alive = (out, bits, scratch, dw, dasp)
+
+    def both():
+        fwd_fn(*fwd_args)
+        bwd_fn(*bwd_args)
+    both.buffers = keep_alive
+    return {"fwd": lambda: fwd_fn(*fwd_args), "bwd": lambda: bwd_fn(*bwd_args),
+            "both": both}
+
+
+# A probe of K2's forward: N calls of its per-block step (`fwd_block`) as
+# its loop makes them, and N Philox blocks XOR-folded into one word, each
+# for N = 8 and 9 (the difference is one block's instructions); and the
+# Philox blocks of a training-shape call XOR-folded at full occupancy, timed
+K2_PROBE_N = r"""
+extern "C" __global__ void k2_step_%(n)d(const float4* av_in,
+    const float* w_in, float* out, unsigned* nib_out, uint2 key,
+    uint32_t thr, uint32_t stride) {
+  const RoundKeys rk = round_keys(key);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float4 av = av_in[i];
+  float wv[8], acc[8][4];
+  for (int r = 0; r < 8; ++r) {
+    wv[r] = w_in[8 * i + r];
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+  }
+  uint32_t nib = 0;
+%(steps)s
+  float s = 0.0f;
+  for (int r = 0; r < 8; ++r)
+    s += acc[r][0] + acc[r][1] + acc[r][2] + acc[r][3];
+  out[i] = s;
+  nib_out[i] = nib;
+}
+extern "C" __global__ void k2_philox_%(n)d(unsigned* out, uint2 key,
+                                           uint32_t stride) {
+  const RoundKeys rk = round_keys(key);
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t x = 0;
+#pragma unroll
+  for (int k = 0; k < %(n)d; ++k) {
+    const uint4 r = philox4x32_10(make_uint4(i + k * stride, 0u, 0u, 0u),
+                                  rk);
+    x ^= r.x ^ r.y ^ r.z ^ r.w;
+  }
+  out[i] = x;
+}
+"""
+K2_PROBE_RUN = r"""
+extern "C" __global__ void k2_philox_run(unsigned* out, uint2 key,
+                                         int per_thread) {
+  const RoundKeys rk = round_keys(key);
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t n = gridDim.x * blockDim.x;
+  uint32_t x = 0;
+#pragma unroll 8
+  for (int k = 0; k < per_thread; ++k) {
+    const uint4 r = philox4x32_10(make_uint4(i + k * n, 0u, 0u, 0u), rk);
+    x ^= r.x ^ r.y ^ r.z ^ r.w;
+  }
+  out[i] = x;
+}
+extern "C" int k2_philox_probe(void* out, int grid, int per_thread,
+                               unsigned k0, unsigned k1, void* stream) {
+  k2_philox_run<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(out), make_uint2(k0, k1), per_thread);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _sass_pipe(op):
+    """The issue path of a SASS opcode, as the bound counts it."""
+    if op.startswith("U"):
+        return "uniform"
+    if op.startswith("IMAD"):
+        return "fma"
+    if op.split(".")[0] in ("FFMA", "FADD", "FMUL"):
+        return "float"
+    if op.split(".")[0] in ("LDG", "STG", "LDS", "STS", "LDC", "SHFL", "S2R",
+                            "S2UR", "BRA", "EXIT", "BAR", "BSSY", "BSYNC",
+                            "WARPSYNC", "RET", "CALL"):
+        return "other"
+    return "alu"
+
+
+def k2_sass_ops(dev):
+    """K2-fwd's integer work, read from the SASS of a probe built from the
+    checkout's `aspect_dropout.cu` with the kernels' nvcc flags: {"step":
+    one per-block step of the forward's loop, "philox": one Philox block
+    XOR-folded}, each {pipe: instructions}, the difference of the probes
+    with N + 1 and N calls. Also times the Philox blocks of a call at the
+    training shape, XOR-folded at full occupancy, against the bound their
+    count gives: a probe faster than its counted bound would mean the count
+    is wrong."""
+    import ctypes
     import re
+    import torch
     from fancyrec_tpu_torch.ops import _build
 
-    work = os.path.join(HERE, "build", "philox_probe")
+    work = os.path.join(HERE, "build", "k2_probe")
     os.makedirs(work, exist_ok=True)
     src = os.path.join(work, "probe.cu")
     with open(src, "w") as f:
         f.write('#include "%s"\n' % os.path.join(_build.CSRC,
-                                                  "aspect_dropout.cu")
-                + "extern \"C\" __global__ void probe_keep4(const uint64_t* e,"
-                " unsigned* out, uint2 key, uint32_t thr) {\n"
-                "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-                "  out[i] = keep4(e[i] << 2, key, thr, true);\n}\n"
-                "extern \"C\" __global__ void probe_base(const uint64_t* e,"
-                " unsigned* out, uint2 key, uint32_t thr) {\n"
-                "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-                "  out[i] = static_cast<unsigned>(e[i] << 2);\n}\n")
-    cubin = os.path.join(work, "probe.cubin")
-    flags = [f for f in _build.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
-    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin, src],
-                   check=True, capture_output=True, text=True)
+                                                   "aspect_dropout.cu")
+                + "".join(K2_PROBE_N % {"n": n, "steps": "".join(
+                    "  nib |= fwd_block<%d>(i + %d * stride, rk, thr, wv[%d], "
+                    "av, acc[%d]);\n" % (4 * (k % 8), k, k % 8, k % 8)
+                    for k in range(n))} for n in (8, 9))
+                + K2_PROBE_RUN)
+    lib_path = os.path.join(work, "libk2probe.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path,
+                    src], check=True, capture_output=True, text=True)
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"),
-         "-sass", cubin], check=True, capture_output=True, text=True).stdout
+         "-sass", lib_path], check=True, capture_output=True,
+        text=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"fma": 0, "alu": 0}
+            counts[fn] = {}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
                      line)
         if fn and m and m.group(1) != "NOP":
-            counts[fn]["fma" if m.group(1).startswith("IMAD") else "alu"] += 1
-    if not {"probe_keep4", "probe_base"} <= set(counts):
-        fail("the Philox probe's SASS lacks its kernels: %s" % sorted(counts))
-    return {p: counts["probe_keep4"][p] - counts["probe_base"][p]
-            for p in ("fma", "alu")}
+            pipe = _sass_pipe(m.group(1))
+            counts[fn][pipe] = counts[fn].get(pipe, 0) + 1
+            if m.group(1).startswith("IMAD.WIDE"):     # of the FMA pipe's
+                counts[fn]["wide"] = counts[fn].get("wide", 0) + 1
+    want = ["k2_step_8", "k2_step_9", "k2_philox_8", "k2_philox_9"]
+    if not set(want) <= set(counts):
+        fail("the K2 probe's SASS lacks its kernels: %s" % sorted(counts))
+    pipes = ("fma", "alu", "float", "uniform", "other", "wide")
+    ops = {kind: {p: counts["k2_%s_9" % kind].get(p, 0)
+                  - counts["k2_%s_8" % kind].get(p, 0) for p in pipes}
+           for kind in ("step", "philox")}
+    # the Philox blocks of one training-shape call, 16 a thread
+    blocks = B_TRAIN * N_ASPECTS * DIM // 4
+    per_thread = 16
+    grid = blocks // (256 * per_thread)
+    lib = ctypes.CDLL(lib_path)
+    probe = lib.k2_philox_probe
+    probe.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2
+                      + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
+    probe.restype = ctypes.c_int
+    out = torch.empty(grid * 256, dtype=torch.int32, device=dev)
+    args = (out.data_ptr(), grid, per_thread, K2_SEED[0], K2_SEED[1],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if probe(*args):
+        fail("the K2 Philox probe did not launch")
+    probe_ms = cuda_ms(lambda: probe(*args), 50)
+    ph = ops["philox"]
+    n = grid * 256 * per_thread
+    counted = n * max(ph["alu"], ph["fma"]) / INT32_OPS * 1e3
+    # the same count with each IMAD.WIDE (a 64-bit product) taking two
+    # issues of the FMA pipe
+    counted_wide = n * max(ph["alu"], ph["fma"] + ph["wide"]) / INT32_OPS * 1e3
+    for kind in ("step", "philox"):
+        log("aspect_dropout SASS, one %s: %s (of the fma, IMAD.WIDE %d)" % (
+            "per-block step of the forward's loop (Philox block, 4 compares, "
+            "4 kept products, nibble)" if kind == "step"
+            else "Philox block XOR-folded",
+            ", ".join("%s %d" % (p, ops[kind][p]) for p in pipes[:-1]),
+            ops[kind]["wide"]))
+    log("aspect_dropout: Philox-only probe, %d blocks (%d a thread, %d "
+        "blocks of 256), %.4f ms; its counted bound %.4f ms (the busier "
+        "integer pipe): %s; with IMAD.WIDE at half rate the count gives "
+        "%.4f ms" % (n, per_thread, grid, probe_ms, counted,
+                     "the probe is slower than the count, as it must be"
+                     if probe_ms >= counted else
+                     "THE PROBE BEATS THE COUNT: the count is wrong",
+                     counted_wide))
+    return {**ops, "probe_ms": probe_ms, "probe_bound_ms": counted}
 
 
 def check_edges(dev):
@@ -845,9 +1031,6 @@ def check_edges(dev):
     ties, k above the valid rows, several brand tiles, odd D, odd aspect
     counts and column counts (K4's edges are in check_cosine)."""
     import torch
-    from fancyrec_tpu_torch.ops.brand_dropout import (
-        aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
-        aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref)
     from fancyrec_tpu_torch.ops.gru_scan import (
         gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda, gru_scan_ref)
 
@@ -916,29 +1099,54 @@ def check_edges(dev):
             if not err <= tol:
                 fail("gru_scan_bwd T=%d B=%d H=%d %s %s: max err %.3g > %g"
                      % (t, b, h, dt, how, err, tol))
-    # aspect dropout: aspects not a multiple of the tile, columns not a
-    # multiple of 4 and past one 1024-column chunk, keep = 1 against the
-    # deterministic mean
-    for b, a, c, keep in ((3, 37, 130, 0.7), (5, 50, 2050, 0.5),
-                          (2, 16, 64, 1.0), (9, 33, 1027, 0.3)):
-        w = torch.randn(b, a, generator=g, device=dev)
-        asp = torch.randn(a, c, generator=g, device=dev)
-        gr = torch.randn(b, c, generator=g, device=dev)
-        seed = (b * 7919, c * 104729)
-        pairs = [(aspect_dropout_fwd_cuda(w, asp, seed, keep),
-                  aspect_dropout_fwd_ref(w, asp, seed, keep))]
-        pairs += list(zip(aspect_dropout_bwd_cuda(w, asp, gr, seed, keep),
-                          aspect_dropout_bwd_ref(w, asp, gr, seed, keep)))
-        if keep == 1.0:
-            pairs.append((pairs[0][0], (w @ asp) / a))
-        err = max((x - y).abs().max().item() for x, y in pairs)
-        if not err <= K2_TOL:
-            fail("aspect_dropout B=%d A=%d C=%d keep=%g: max err %.3g > %g"
-                 % (b, a, c, keep, err, K2_TOL))
+    check_k2_edges(g, dev)
     torch.cuda.synchronize()
     check_topk_edges(dev)
     check_int8_routing(dev)
     log("edge shapes: every kernel agrees with its plain version")
+
+
+def check_k2_edges(g, dev):
+    """K2 against its plain versions at shapes the training path does not
+    reach, inputs drawn from the generator g."""
+    import torch
+    from fancyrec_tpu_torch.ops.brand_dropout import (
+        aspect_dropout_bwd_cuda, aspect_dropout_bwd_ref,
+        aspect_dropout_fwd_cuda, aspect_dropout_fwd_ref)
+
+    # aspect dropout: aspects not a multiple of the tile or of the
+    # forward's split (301: 37 splits of 8 and one of 5), columns not a
+    # multiple of 4 (the path that draws a block an element) and past one
+    # 1024-column chunk, batch rows past one 8-row tile, keep = 1 against
+    # the deterministic mean; the streamed backward (C <= 1024, B <= 8)
+    # with several aspect groups a block and A not a multiple of 4 (2001);
+    # the keep bits against the plain packed mask
+    for b, a, c, keep in ((3, 37, 130, 0.7), (5, 50, 2050, 0.5),
+                          (2, 16, 64, 1.0), (9, 33, 1027, 0.3),
+                          (12, 301, 96, 0.5), (7, 2001, 96, 0.5)):
+        w = torch.randn(b, a, generator=g, device=dev)
+        asp = torch.randn(a, c, generator=g, device=dev)
+        gr = torch.randn(b, c, generator=g, device=dev)
+        seed = (b * 7919, c * 104729)
+        out_k, bits_k = aspect_dropout_fwd_cuda(w, asp, seed, keep,
+                                                with_bits=True)
+        out_p, bits_p = aspect_dropout_fwd_ref(w, asp, seed, keep,
+                                               with_bits=True)
+        if not torch.equal(bits_k, bits_p):
+            fail("aspect_dropout B=%d A=%d C=%d keep=%g: keep bits differ "
+                 "from the plain ones in %d of %d words"
+                 % (b, a, c, keep, int((bits_k != bits_p).sum()),
+                    bits_p.numel()))
+        pairs = [(out_k, out_p),
+                 (aspect_dropout_fwd_cuda(w, asp, seed, keep), out_p)]
+        pairs += list(zip(aspect_dropout_bwd_cuda(w, asp, gr, bits_k, keep),
+                          aspect_dropout_bwd_ref(w, asp, gr, seed, keep)))
+        if keep == 1.0:
+            pairs.append((out_k, (w @ asp) / a))
+        err = max((x - y).abs().max().item() for x, y in pairs)
+        if not err <= K2_TOL:
+            fail("aspect_dropout B=%d A=%d C=%d keep=%g: max err %.3g > %g"
+                 % (b, a, c, keep, err, K2_TOL))
 
 
 def check_topk_edges(dev):
@@ -1674,10 +1882,13 @@ def main():
         if k["launches"] < 1:
             fail("%s was not launched on its main path" % k["name"])
 
+    # the contract's keys, then, where a record has them, its C entry's time
+    # on buffers made once and its kernels' device time
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: kern[k] for k in keys + ("entry_ms", "device_ms") if k in kern}
+        for kern in kernels]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

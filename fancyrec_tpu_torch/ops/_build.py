@@ -11,11 +11,14 @@ at import time: the CPU tests import every module on machines without
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
 from typing import Dict, Iterable
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -88,3 +91,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def raw_stream(device: torch.device) -> int:
+    """The cudaStream_t, as an int, of the current PyTorch stream of a CUDA
+    device, for a C entry's `stream` parameter."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(index) if get else torch.cuda.current_stream(index).cuda_stream
+
+
+def call_on(device: torch.device, fn, args):
+    """fn(*args) with `device` the current CUDA device, switched to only
+    where it is not already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)

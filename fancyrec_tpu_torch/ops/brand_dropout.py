@@ -15,12 +15,17 @@ same words with 32-bit arithmetic written in int64 16-bit limbs, so the
 kernels and the plain versions drop the same elements bit for bit. The
 TPU's hardware generator has no counterpart, so the masks differ from the
 JAX package's (same distribution); tests hold the two at keep = 1.
+
+The forward also gives the mask as packed keep bits (`pack_keep_bits`),
+which the autograd function saves and its backward reads: the backward
+draws nothing. The plain versions do the same on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -30,6 +35,10 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Random123's Philox4x32 constants
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 _CHUNK = 64                                 # aspects a plain-version pass
+_F_COLS, _F_ROWS, _F_WARPS = 128, 8, 8      # the forward kernel's block
+_F_MAX_SPAN = 256                           # aspects a split, at most
+_B_ASP, _S_COLS = 4, 1024                   # the backward's group, and the
+                                            # columns its streamed block takes
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +69,7 @@ def philox4x32_10(counter: Sequence[torch.Tensor], key: Sequence[int]
     return c0, c1, c2, c3
 
 
+@functools.lru_cache(maxsize=256)
 def keep_threshold(num_aspects: int, keep: float) -> Tuple[int, float]:
     """-> (thr, scale) as the TPU kernel's `_prep` computes them."""
     if not 0.0 < keep <= 1.0:
@@ -92,113 +102,253 @@ def dropout_mask(seed: Sequence[int], thr: int, b: int, a: int, c: int,
 
 
 def _check(w: torch.Tensor, asp: torch.Tensor, g: torch.Tensor = None):
-    if w.dim() != 2 or asp.dim() != 2 or w.shape[1] != asp.shape[0]:
+    ws, asps = w.shape, asp.shape
+    if len(ws) != 2 or len(asps) != 2 or ws[1] != asps[0]:
         raise ValueError("w must be (B, A) and asp (A, C), got %s and %s"
-                         % (tuple(w.shape), tuple(asp.shape)))
-    if g is not None and tuple(g.shape) != (w.shape[0], asp.shape[1]):
+                         % (tuple(ws), tuple(asps)))
+    if g is not None and g.shape != (ws[0], asps[1]):
         raise ValueError("g must be (B, C) = %s, got %s"
-                         % ((w.shape[0], asp.shape[1]), tuple(g.shape)))
+                         % ((ws[0], asps[1]), tuple(g.shape)))
+    f32, dev = torch.float32, w.get_device()
     for x in (w, asp) + (() if g is None else (g,)):
-        if x.dtype != torch.float32:
+        if x.dtype is not f32:
             raise ValueError("aspect dropout takes float32, got %s" % x.dtype)
-        if x.device != w.device:
+        if x.get_device() != dev:
             raise ValueError("w, asp (and g) must be on one device")
 
 
+def pack_keep_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Bool (..., C) -> int32 (..., ceil(C / 32)): bit c & 31 of word c >> 5
+    set where element c is kept, the tail bits past C zero."""
+    c = mask.shape[-1]
+    words = -(-c // 32)
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, 32 * words - c))
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
+        << torch.arange(32, dtype=torch.int64, device=mask.device)
+    packed = (m.reshape(*mask.shape[:-1], words, 32) * weights).sum(dim=-1)
+    return (packed - ((packed >> 31) << 32)).to(torch.int32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, c: int) -> torch.Tensor:
+    """The inverse of `pack_keep_bits`: int32 (..., W) -> bool (..., c)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    m = (bits.to(torch.int64)[..., None] >> shifts) & 1
+    return m.reshape(*bits.shape[:-1], -1)[..., :c].bool()
+
+
 def aspect_dropout_fwd_ref(w: torch.Tensor, asp: torch.Tensor,
-                           seed: Sequence[int], keep: float) -> torch.Tensor:
+                           seed: Sequence[int], keep: float,
+                           with_bits: bool = False):
     """Plain PyTorch version of the forward kernel: the mask materialised
-    in chunks of aspects, never all at once."""
+    in chunks of aspects, never all at once. -> out, or (out, bits) with
+    the packed keep bits (B, A, ceil(C / 32)) when `with_bits`."""
     _check(w, asp)
     b, a = w.shape
     c = asp.shape[1]
     thr, scale = keep_threshold(a, keep)
     out = torch.zeros((b, c), dtype=torch.float32, device=w.device)
+    bits = (torch.empty((b, a, -(-c // 32)), dtype=torch.int32,
+                        device=w.device) if with_bits else None)
     for lo in range(0, a, _CHUNK):
         hi = min(lo + _CHUNK, a)
         m = dropout_mask(seed, thr, b, a, c, lo, hi, w.device)
         prod = w[:, lo:hi, None] * asp[None, lo:hi]
         out = out + torch.where(m, prod, torch.zeros_like(prod)).sum(dim=1)
-    return out * scale
+        if with_bits:
+            bits[:, lo:hi] = pack_keep_bits(m)
+    return (out * scale, bits) if with_bits else out * scale
 
 
-def aspect_dropout_bwd_ref(w: torch.Tensor, asp: torch.Tensor,
-                           g: torch.Tensor, seed: Sequence[int], keep: float
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel -> (dw, dasp)."""
-    _check(w, asp, g)
-    b, a = w.shape
-    c = asp.shape[1]
-    thr, scale = keep_threshold(a, keep)
+def _bwd_from_masks(w, asp, g, keep, mask_of):
+    """(dw, dasp) with the keep mask of aspects [lo, hi) from
+    mask_of(lo, hi): one sum order for both plain backwards."""
+    a = w.shape[1]
+    _, scale = keep_threshold(a, keep)
     dw = torch.empty_like(w)
     dasp = torch.empty_like(asp)
     for lo in range(0, a, _CHUNK):
         hi = min(lo + _CHUNK, a)
-        m = dropout_mask(seed, thr, b, a, c, lo, hi, w.device)
+        m = mask_of(lo, hi)
         mg = torch.where(m, g[:, None, :], torch.zeros((), device=g.device))
         dw[:, lo:hi] = (mg * asp[None, lo:hi]).sum(dim=2) * scale
         dasp[lo:hi] = (mg * w[:, lo:hi, None]).sum(dim=0) * scale
     return dw, dasp
 
 
-def _launch(name: str, args, w: torch.Tensor):
-    lib = _build.load("aspect_dropout")
-    fn = getattr(lib, name)
-    n_ptr = len(args) - 7
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                   + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(*args, stream)
+def aspect_dropout_bwd_ref(w: torch.Tensor, asp: torch.Tensor,
+                           g: torch.Tensor, seed: Sequence[int], keep: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward that redraws the mask from the seed -> (dw, dasp)."""
+    _check(w, asp, g)
+    b, a = w.shape
+    c = asp.shape[1]
+    thr, _ = keep_threshold(a, keep)
+    return _bwd_from_masks(w, asp, g, keep, lambda lo, hi: dropout_mask(
+        seed, thr, b, a, c, lo, hi, w.device))
+
+
+def _check_bits(w: torch.Tensor, asp: torch.Tensor, bits: torch.Tensor):
+    want = (w.shape[0], w.shape[1], -(-asp.shape[1] // 32))
+    if not isinstance(bits, torch.Tensor) or bits.shape != want \
+            or bits.dtype is not torch.int32 \
+            or bits.get_device() != w.get_device():
+        raise ValueError("bits must be int32 %s on %s, got %s" % (
+            want, w.device, (tuple(bits.shape), bits.dtype, bits.device)
+            if isinstance(bits, torch.Tensor) else type(bits)))
+
+
+def aspect_dropout_bwd_bits_ref(w: torch.Tensor, asp: torch.Tensor,
+                                g: torch.Tensor, bits: torch.Tensor,
+                                keep: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: the mask from the forward's
+    packed keep bits -> (dw, dasp), bit for bit those of
+    `aspect_dropout_bwd_ref` on the seed that drew the bits."""
+    _check(w, asp, g)
+    _check_bits(w, asp, bits)
+    c = asp.shape[1]
+    return _bwd_from_masks(w, asp, g, keep, lambda lo, hi: unpack_keep_bits(
+        bits[:, lo:hi], c))
+
+
+class AdmPlan(NamedTuple):
+    """K2's launches. The forward: A in `splits` spans of `span` aspects
+    (blocks along A), the splits' sums in `scratch_floats` floats of
+    scratch, splits x B x (C rounded up to 128). The backward: `bwd_blocks`
+    persistent blocks of the streamed kernel taking A's groups of 4 aspects
+    in turn, or, where 0, a block a group."""
+    splits: int
+    span: int
+    scratch_floats: int
+    bwd_blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def aspect_dropout_plan(b: int, a: int, c: int, sms: int) -> AdmPlan:
+    """The launches for B = b, A = a, C = c on a card of `sms` SMs. The
+    forward: enough spans of A for one wave of two blocks an SM over the
+    blocks' 128-column, 8-row tiles; a span a whole number of aspects a
+    warp (8) and at most 256 aspects (the block's w tile in shared memory).
+    The backward: streamed, two blocks an SM, where its block takes the
+    shape (C % 4 == 0, C <= 1024, B <= 8), else a block a group."""
+    tiles = -(-c // _F_COLS) * -(-b // _F_ROWS)
+    want = max(1, -(-2 * sms // tiles))
+    span = -(-max(1, -(-a // want)) // _F_WARPS) * _F_WARPS
+    span = min(span, _F_MAX_SPAN)
+    splits = -(-a // span)
+    streamed = c % 4 == 0 and c <= _S_COLS and b <= _F_ROWS
+    return AdmPlan(splits, span, splits * b * -(-c // _F_COLS) * _F_COLS,
+                   min(-(-a // _B_ASP), 2 * sms) if streamed else 0)
+
+
+def _fwd_fn():
+    fn = _build.load("aspect_dropout").aspect_dropout_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_uint] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _build.load("aspect_dropout").aspect_dropout_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed, keep, plan):
+    """The arguments of K2's forward C entry `aspect_dropout_fwd` for
+    contiguous CUDA tensors and a plan, on the current stream of w's card;
+    bits None writes no keep bits."""
+    b, a = w.shape
+    thr, scale = keep_threshold(a, keep)
+    return (w.data_ptr(), asp.data_ptr(), out.data_ptr(),
+            None if bits is None else bits.data_ptr(), scratch.data_ptr(),
+            plan.scratch_floats, b, a, asp.shape[1], plan.splits, plan.span,
+            int(seed[0]) & _U32, int(seed[1]) & _U32, thr, scale,
+            _build.raw_stream(w.device))
+
+
+def aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep, plan):
+    """The arguments of K2's backward C entry `aspect_dropout_bwd` for
+    contiguous CUDA tensors and a plan, on the current stream of w's
+    card."""
+    b, a = w.shape
+    return (w.data_ptr(), asp.data_ptr(), g.data_ptr(), bits.data_ptr(),
+            dw.data_ptr(), dasp.data_ptr(), b, a, asp.shape[1],
+            plan.bwd_blocks, keep_threshold(a, keep)[1],
+            _build.raw_stream(w.device))
+
+
+def _run(name: str, fn, args, dev: torch.device):
+    err = _build.call_on(dev, fn, args)
     if err:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, err))
 
 
-def _cuda_args(w: torch.Tensor, asp: torch.Tensor, seed, keep):
-    if w.device.type != "cuda":
+def _need_cuda(w: torch.Tensor):
+    if not w.is_cuda:
         raise ValueError("the aspect dropout kernels need CUDA tensors, got %s"
                          % w.device)
-    b, a = w.shape
-    c = asp.shape[1]
-    thr, scale = keep_threshold(a, keep)
-    return (b, a, c, int(seed[0]) & _U32, int(seed[1]) & _U32, thr, scale)
 
 
 def aspect_dropout_fwd_cuda(w: torch.Tensor, asp: torch.Tensor,
-                            seed: Sequence[int], keep: float) -> torch.Tensor:
-    """Launch the forward kernel of `csrc/aspect_dropout.cu`."""
+                            seed: Sequence[int], keep: float,
+                            with_bits: bool = False):
+    """Launch the forward kernel of `csrc/aspect_dropout.cu` (and the sum of
+    its splits) -> out, or (out, bits) when `with_bits`, as
+    `aspect_dropout_fwd_ref`."""
     _check(w, asp)
-    shape = _cuda_args(w, asp, seed, keep)
+    _need_cuda(w)
+    b, a = w.shape
+    c = asp.shape[1]
     w, asp = w.contiguous(), asp.contiguous()
-    out = torch.empty((w.shape[0], asp.shape[1]), dtype=torch.float32,
-                      device=w.device)
-    if out.numel() == 0 or w.shape[1] == 0:
-        return out.zero_()
-    _launch("aspect_dropout_fwd",
-            (w.data_ptr(), asp.data_ptr(), out.data_ptr()) + shape, w)
+    dev = w.device
+    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    bits = (torch.empty((b, a, -(-c // 32)), dtype=torch.int32, device=dev)
+            if with_bits else None)
+    if b == 0 or a == 0 or c == 0:
+        keep_threshold(a, keep)                 # refuses a keep out of range
+        out.zero_()
+        return (out, bits.zero_()) if with_bits else out
+    plan = aspect_dropout_plan(b, a, c, _build.sm_count(dev))
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=dev)
+    _run("aspect_dropout_fwd", _fwd_fn(), aspect_dropout_fwd_args(
+        w, asp, out, bits, scratch, seed, keep, plan), dev)
     aspect_dropout_fwd_cuda.launches += 1
-    return out
+    return (out, bits) if with_bits else out
 
 
 aspect_dropout_fwd_cuda.launches = 0
 
 
 def aspect_dropout_bwd_cuda(w: torch.Tensor, asp: torch.Tensor,
-                            g: torch.Tensor, seed: Sequence[int], keep: float
+                            g: torch.Tensor, bits: torch.Tensor, keep: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel of `csrc/aspect_dropout.cu` -> (dw, dasp)."""
+    """Launch the backward kernel of `csrc/aspect_dropout.cu` on the keep
+    bits the forward wrote -> (dw, dasp)."""
     _check(w, asp, g)
-    shape = _cuda_args(w, asp, seed, keep)
+    _need_cuda(w)
+    _check_bits(w, asp, bits)
+    b, a = w.shape
+    c = asp.shape[1]
     w, asp, g = w.contiguous(), asp.contiguous(), g.contiguous()
+    bits = bits.contiguous()
     dw = torch.empty_like(w)
     dasp = torch.empty_like(asp)
-    if w.numel() == 0 or asp.numel() == 0:
+    if b == 0 or a == 0 or c == 0:
+        keep_threshold(a, keep)
         return dw.zero_(), dasp.zero_()
-    _launch("aspect_dropout_bwd",
-            (w.data_ptr(), asp.data_ptr(), g.data_ptr(), dw.data_ptr(),
-             dasp.data_ptr()) + shape, w)
+    dev = w.device
+    plan = aspect_dropout_plan(b, a, c, _build.sm_count(dev))
+    _run("aspect_dropout_bwd", _bwd_fn(), aspect_dropout_bwd_args(
+        w, asp, g, bits, dw, dasp, keep, plan), dev)
     aspect_dropout_bwd_cuda.launches += 1
     return dw, dasp
 
@@ -206,21 +356,25 @@ def aspect_dropout_bwd_cuda(w: torch.Tensor, asp: torch.Tensor,
 aspect_dropout_bwd_cuda.launches = 0
 
 
+def _fwd_of(w: torch.Tensor):
+    return (aspect_dropout_fwd_ref if w.device.type == "cpu"
+            else aspect_dropout_fwd_cuda)
+
+
 class _AspectDropoutMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, asp, seed, keep):
-        ctx.save_for_backward(w, asp)
-        ctx.seed, ctx.keep = seed, keep
-        fwd = (aspect_dropout_fwd_ref if w.device.type == "cpu"
-               else aspect_dropout_fwd_cuda)
-        return fwd(w, asp, seed, keep)
+        out, bits = _fwd_of(w)(w, asp, seed, keep, with_bits=True)
+        ctx.save_for_backward(w, asp, bits)
+        ctx.keep = keep
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        w, asp = ctx.saved_tensors
-        bwd = (aspect_dropout_bwd_ref if w.device.type == "cpu"
+        w, asp, bits = ctx.saved_tensors
+        bwd = (aspect_dropout_bwd_bits_ref if w.device.type == "cpu"
                else aspect_dropout_bwd_cuda)
-        dw, dasp = bwd(w, asp, g.contiguous(), ctx.seed, ctx.keep)
+        dw, dasp = bwd(w, asp, g.contiguous(), bits, ctx.keep)
         return dw, dasp, None, None
 
 
@@ -233,4 +387,7 @@ def aspect_dropout_mean(w: torch.Tensor, asp: torch.Tensor,
 
     w: (B, A) aspect weights, asp: (A, C) aspect matrix, float32; seed: two
     32-bit key words; keep: the keep probability. -> (B, C) float32."""
-    return _AspectDropoutMean.apply(w, asp, tuple(int(s) for s in seed), keep)
+    seed = tuple(int(s) for s in seed)
+    if torch.is_grad_enabled() and (w.requires_grad or asp.requires_grad):
+        return _AspectDropoutMean.apply(w, asp, seed, keep)
+    return _fwd_of(w)(w, asp, seed, keep)      # no grad: no keep bits

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -73,11 +72,6 @@ def cosine_scratch_len(b: int, n: int, slices: int) -> int:
     return slices * (b + 1) * n if slices > 1 else 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _cosine_fn():
     fn = _build.load("cosine_scores").cosine_scores_fwd
     if fn.argtypes is None:
@@ -115,7 +109,7 @@ def cosine_scores_cuda(brands: torch.Tensor, posts: torch.Tensor
         raise ValueError("need B, N, D >= 1, got B=%d N=%d D=%d" % (b, n, d))
     brands = brands.contiguous()
     posts = posts.contiguous()
-    slices = cosine_slices(b, n, d, _sm_count(dev))
+    slices = cosine_slices(b, n, d, _build.sm_count(dev))
     if slices == 1:
         brands = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
@@ -430,7 +424,7 @@ def topk_int8_cuda(brands: torch.Tensor, posts_q: torch.Tensor,
     if posts_q.data_ptr() % (16 if d % 16 == 0 else 4):
         raise ValueError("int8 post rows of D=%d must start %d-byte aligned"
                          % (d, 16 if d % 16 == 0 else 4))
-    plan = topk_int8_plan(b, n_valid, d, k, _sm_count(dev))
+    plan = topk_int8_plan(b, n_valid, d, k, _build.sm_count(dev))
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((b, k), dtype=torch.int32, device=dev)

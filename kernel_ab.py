@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time K3 (the fused int8 top-k), K4 (the cosine scores) and K1-bwd (the
-GRU reverse scan) of this checkout against those of another checkout, on
-one card, in turns.
+"""Time K3 (the fused int8 top-k), K4 (the cosine scores), K1-bwd (the GRU
+reverse scan) and K2 (the brand dropout + mean, forward and backward) of
+this checkout against those of another checkout, on one card, in turns.
 
-    python3 kernel_ab.py BASE_DIR [k3] [k4] [k1bwd] [-DNAME=VALUE ...]
-        (from the repository root; one card; all three when none is named)
+    python3 kernel_ab.py BASE_DIR [k3] [k4] [k1bwd] [k2] [-DNAME=VALUE ...]
+        (from the repository root; one card; all four when none is named)
 
 BASE_DIR holds the other checkout, for example the parent commit unpacked
 with `git archive` into the ignored build/ directory, or `.` to time this
@@ -21,7 +21,13 @@ through adapters chosen by the parameter count of their C entries:
     or this tree's entry with the D split;
   - csrc/gru_scan.cu: the C entry `gru_scan_bwd` of this checkout, with no
     more carry scratch than this tree's (one (2, B, H) slot where its
-    library states none).
+    library states none);
+  - csrc/aspect_dropout.cu: `aspect_dropout_fwd(w, asp, out, B, A, C,
+    seed0, seed1, thr, scale, stream)` and `aspect_dropout_bwd(w, asp, g,
+    dw, dasp, B, A, C, seed0, seed1, thr, scale, stream)`, whose backward
+    redraws the mask from the seed (the commits before the keep bits), or
+    this tree's entries, whose forward writes the keep bits and splits A
+    over a scratch buffer and whose backward reads the bits.
 Each kernel is held against its plain version, and each quantity is timed
 in ten pairs, the base and this tree taking turns at going first:
   - K3 at 51 x 1,000,000 x 1024, k = 10 and k = 128, and 51 x 4,080 x 1024
@@ -34,7 +40,15 @@ in ten pairs, the base and this tree taking turns at going first:
   - K1-bwd at T=64, H=1024, float32, B=8 (the recipe's training batch) and
     B=128 (the trainer's default batch): the C entry on buffers made once;
     then this tree's backward at B=128 with each number of batch rows a
-    gate block forced.
+    gate block forced;
+  - K2 at A=2000, C=1024, keep 0.5, B=8 (the training microbatch: this
+    tree's streamed backward) and B=128 (the trainer's default batch: its
+    forward's 16 row tiles, its backward a block a group): the C entries
+    on buffers made once, the forward alone, the backward alone,
+    and the forward then the backward (the fair unit, since this tree's
+    forward also writes the bits its backward reads); and the device time
+    of the forward then the backward (the union of their kernels'
+    intervals in torch.profiler).
 Each line gives the medians, the base's interquartile range, the pairs this
 tree won and a verdict: faster (or slower) where one side won at least 9
 of the 10 pairs and the medians differ by more than the base's
@@ -238,8 +252,9 @@ def k4(dev, base_lib, params, results):
     import torch
     import chip_smoke as cs
     from fancyrec_tpu_torch.ops import similarity as sim
+    from fancyrec_tpu_torch.ops import _build
     from fancyrec_tpu_torch.ops.similarity import (
-        _cosine_fn, _sm_count, cosine_scores_cuda, cosine_scores_ref,
+        _cosine_fn, cosine_scores_cuda, cosine_scores_ref,
         cosine_scratch_len, cosine_slices)
 
     split = params == 9           # the base's entry is this tree's
@@ -299,7 +314,7 @@ def k4(dev, base_lib, params, results):
                          % (shape, side, err, cs.K4_TOL))
             del want
             # the C entries alone on buffers made once
-            s = cosine_slices(cs.N_BRANDS, n, cs.DIM, _sm_count(dev))
+            s = cosine_slices(cs.N_BRANDS, n, cs.DIM, _build.sm_count(dev))
             bn = brands / torch.linalg.norm(brands, dim=1, keepdim=True)
             out_b = torch.empty((cs.N_BRANDS, n), device=dev)
             out_t = torch.empty((cs.N_BRANDS, n), device=dev)
@@ -422,10 +437,111 @@ def k1_bwd(dev, base_lib, results):
         torch.cuda.empty_cache()
 
 
-# kernel: (its source, its C entry, the entry's parameter counts taken)
-KERNELS = {"k3": ("topk_int8", "topk_int8_fwd", (12, 17)),
-           "k4": ("cosine_scores", "cosine_scores_fwd", (7, 9)),
-           "k1bwd": ("gru_scan", "gru_scan_bwd", (14,))}
+def k2(dev, base_lib, params, results):
+    """K2's C entries, the base's against this tree's, at the training
+    microbatch (B=8: the forward's one row tile and the streamed backward)
+    and at the trainer's default batch (B=128: 16 row tiles and the
+    backward a block a group)."""
+    import torch
+    import chip_smoke as cs
+    from fancyrec_tpu_torch.ops import _build
+    from fancyrec_tpu_torch.ops import brand_dropout as bd
+
+    a, c = cs.N_ASPECTS, cs.DIM
+    s0, s1 = cs.K2_SEED
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def entries(lib, n_fwd, n_bwd, w, asp, gr):
+        """The two C entries of a library on buffers made once, through the
+        adapters their parameter counts pick: (forward, backward, outputs)."""
+        b = w.shape[0]
+        thr, scale = bd.keep_threshold(a, cs.KEEP)
+        plan = bd.aspect_dropout_plan(b, a, c, _build.sm_count(dev))
+        out = torch.empty((b, c), device=dev)
+        dw, dasp = torch.empty_like(w), torch.empty_like(asp)
+        bits = torch.empty((b, a, -(-c // 32)), dtype=torch.int32,
+                           device=dev)
+        scratch = torch.empty(plan.scratch_floats, device=dev)
+        fwd, bwd = lib.aspect_dropout_fwd, lib.aspect_dropout_bwd
+        for fn in (fwd, bwd):
+            fn.restype = ctypes.c_int
+        if n_fwd == 11:
+            fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                            + [ctypes.c_uint] * 3
+                            + [ctypes.c_float, ctypes.c_void_p])
+            fwd_args = (w.data_ptr(), asp.data_ptr(), out.data_ptr(), b, a, c,
+                        s0, s1, thr, scale, stream)
+        else:
+            fwd.argtypes = bd._fwd_fn().argtypes
+            fwd_args = bd.aspect_dropout_fwd_args(
+                w, asp, out, bits, scratch, cs.K2_SEED, cs.KEEP, plan)
+        if n_bwd == 13:
+            bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                            + [ctypes.c_uint] * 3
+                            + [ctypes.c_float, ctypes.c_void_p])
+            bwd_args = (w.data_ptr(), asp.data_ptr(), gr.data_ptr(),
+                        dw.data_ptr(), dasp.data_ptr(), b, a, c, s0, s1, thr,
+                        scale, stream)
+        else:
+            bwd.argtypes = bd._bwd_fn().argtypes
+            bwd_args = bd.aspect_dropout_bwd_args(w, asp, gr, bits, dw, dasp,
+                                                  cs.KEEP, plan)
+        if fwd(*fwd_args) or bwd(*bwd_args):
+            fail("an aspect_dropout C entry failed")
+        return (lambda: fwd(*fwd_args), lambda: bwd(*bwd_args),
+                (out, dw, dasp, bits, scratch))
+
+    for b in (cs.B_TRAIN, 128):
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + 4)
+        w = torch.randn(b, a, generator=g, device=dev)
+        asp = torch.randn(a, c, generator=g, device=dev)
+        gr = torch.randn(b, c, generator=g, device=dev)
+        with torch.no_grad():
+            out_p = bd.aspect_dropout_fwd_ref(w, asp, cs.K2_SEED, cs.KEEP)
+            dw_p, dasp_p = bd.aspect_dropout_bwd_ref(w, asp, gr, cs.K2_SEED,
+                                                     cs.KEEP)
+            calls, kept = {}, {}
+            for side, lib, n_fwd, n_bwd in (
+                    ("base", base_lib, params["aspect_dropout_fwd"],
+                     params["aspect_dropout_bwd"]),
+                    ("this", _build.load("aspect_dropout"), 16, 12)):
+                fwd, bwd, bufs = entries(lib, n_fwd, n_bwd, w, asp, gr)
+                out, dw, dasp = bufs[:3]
+                torch.cuda.synchronize()
+                err = max((x - y).abs().max().item()
+                          for x, y in ((out, out_p), (dw, dw_p),
+                                       (dasp, dasp_p)))
+                if not err <= cs.K2_TOL:
+                    fail("K2 B=%d, %s tree: max err %.3g > %g"
+                         % (b, side, err, cs.K2_TOL))
+                calls[side] = (fwd, bwd)
+                kept[side] = bufs      # the entries' buffers stay allocated
+            shape = "B=%d A=%d C=%d keep %g" % (b, a, c, cs.KEEP)
+            for what, pick in (("forward", lambda f, bw: f),
+                               ("backward", lambda f, bw: bw),
+                               ("forward + backward",
+                                lambda f, bw: lambda: (f(), bw()))):
+                fns = {side: pick(*calls[side]) for side in calls}
+                results.append(verdict(
+                    "K2 %s, %s, C entries" % (shape, what),
+                    pairs(lambda: cs.cuda_ms(fns["base"], 50),
+                          lambda: cs.cuda_ms(fns["this"], 50))))
+            both = {side: (lambda f, bw: lambda: (f(), bw()))(*calls[side])
+                    for side in calls}
+            results.append(verdict(
+                "K2 %s, forward + backward, device time (profiler union)"
+                % shape, pairs(lambda: cs.device_ms(both["base"], 20),
+                               lambda: cs.device_ms(both["this"], 20))))
+        del w, asp, gr, out_p, dw_p, dasp_p, calls, kept
+        torch.cuda.empty_cache()
+
+
+# kernel: (its source, {its C entry: the entry's parameter counts taken})
+KERNELS = {"k3": ("topk_int8", {"topk_int8_fwd": (12, 17)}),
+           "k4": ("cosine_scores", {"cosine_scores_fwd": (7, 9)}),
+           "k1bwd": ("gru_scan", {"gru_scan_bwd": (14,)}),
+           "k2": ("aspect_dropout", {"aspect_dropout_fwd": (11, 16),
+                                     "aspect_dropout_bwd": (13, 12)})}
 
 
 def main():
@@ -433,7 +549,7 @@ def main():
     names = [a for a in sys.argv[2:] if a not in defines] or list(KERNELS)
     if len(sys.argv) < 2 or not set(names) <= set(KERNELS):
         sys.exit("usage: python3 kernel_ab.py BASE_DIR [k3] [k4] [k1bwd] "
-                 "[-DNAME=VALUE ...]")
+                 "[k2] [-DNAME=VALUE ...]")
     base = os.path.abspath(sys.argv[1])
     import torch
     if not torch.cuda.is_available():
@@ -444,13 +560,15 @@ def main():
 
     params = {}
     for name in names:
-        src, entry, taken = KERNELS[name]
+        src, taken = KERNELS[name]
         with open(os.path.join(base, "fancyrec_tpu_torch", "csrc",
                                src + ".cu")) as f:
-            params[name] = _entry_params(f.read(), entry)
-        if params[name] not in taken:
-            fail("the base's %s takes %s parameters; the adapters take %s"
-                 % (entry, params[name], taken))
+            text = f.read()
+        params[name] = {entry: _entry_params(text, entry) for entry in taken}
+        for entry, counts in taken.items():
+            if params[name][entry] not in counts:
+                fail("the base's %s takes %s parameters; the adapters take %s"
+                     % (entry, params[name][entry], counts))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -471,11 +589,14 @@ def main():
            smi_line))
     results = []
     if "k3" in names:
-        k3(dev, libs["topk_int8"], params["k3"], results)
+        k3(dev, libs["topk_int8"], params["k3"]["topk_int8_fwd"], results)
     if "k4" in names:
-        k4(dev, libs["cosine_scores"], params["k4"], results)
+        k4(dev, libs["cosine_scores"], params["k4"]["cosine_scores_fwd"],
+           results)
     if "k1bwd" in names:
         k1_bwd(dev, libs["gru_scan"], results)
+    if "k2" in names:
+        k2(dev, libs["aspect_dropout"], params["k2"], results)
     print(smi_line)
     print(json.dumps({"device": smi_line, "results": results}), flush=True)
 
