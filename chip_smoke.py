@@ -24,7 +24,10 @@ Phases:
      one, its kernels in one profiled call); edge shapes of every kernel
      (K3 up to 33,024 wide, its brands through its ring), and int8 indexes
      30 wide (which K3 does not take) and 4096 wide (which it does) served
-     on the card as on the CPU;
+     on the card as on the CPU; then the throughput mode's shapes: K1 in
+     float32 at B=64 (its training path), K1 in bfloat16 at B=64 (forward
+     and backward) and B=128 (forward), which no main path runs, each
+     beside cuDNN's GRU in the same dtype, and K2 at B=64;
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -40,9 +43,20 @@ Phases:
   6. evaluation: the tester CLI (`fancyrec_tpu_torch.eval.tester`) on the
      checkpoint that 5's trainer wrote, over the test split; its eight
      metrics must be finite and equal those of the plain cosine of the
-     same embeddings.
-The kernels' launch counts are zeroed just before each of the three paths
-(4, 5c and 6) and read just after: each kernel must have run on its path.
+     same embeddings;
+  7. the JAX package's documented throughput mode (tools/recipe_tpu_run.py
+     fast: batch 64, accumulation 1, --dtype bfloat16 --transfer_dtype
+     bfloat16): one bf16 update on the card against the CPU's; one float32
+     update with and without --bert_remat 1 (equal, peak memory of each);
+     the trainer CLI for three epochs with --profile_dir (posts/s and ms
+     per update an epoch, epoch 1 traced and the trace checked), then the
+     tester CLI on its
+     checkpoint as in 6;
+  8. a checkpoint the JAX package wrote (tests/data/frtpu1_tiny.pth.tar)
+     read by `load_any` onto the card: its encode equals the CPU's.
+The kernels' launch counts are zeroed just before each of the five paths
+(4, 5c, 6, 7's trainer and 7's tester) and read just after: each kernel
+must have run on its path.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
@@ -72,11 +86,20 @@ VIDEOS_PER_BRAND, IMGS_PER_BRAND, FRAMES = 40, 40, 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 INT32_OPS = F32_FLOPS / 4   # 64 integer operations a clock an SM, not 256
+BF16_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense
 K1_TOL = 1e-4     # float32; sum order over H=1024 and 64 recurrent steps
+# bf16 h: a float32 sum-order difference that crosses a bf16 rounding
+# boundary moves h by one ulp (2^-8 relative), as check_edges allows
+K1_BF16_TOL, K1B_BF16_TOL = 2e-2, 5e-2
 # training shapes: bin/instance.sh's batch of 8 and 2000 brand aspects; the
 # brand dropout's keep probability and fixed seed words for the checks
 B_TRAIN, N_ASPECTS, KEEP, K2_SEED = 8, 2000, 0.5, (0x2545F491, 0x9E3779B9)
 ACCUM, LR = 8, 1e-4        # bin/instance.sh: 8 summed microbatches, Adam lr
+# the JAX package's validated throughput mode (tools/recipe_tpu_run.py fast):
+# bin/instance.sh's model with these flags
+B_FAST = 64
+FAST_FLAGS = ["--batch_size", str(B_FAST), "--accumulation_step", "1",
+              "--dtype", "bfloat16", "--transfer_dtype", "bfloat16"]
 # the training fixture: 8 videos of 64 frames and 8 images per brand in
 # each of train, val and test (816 posts each: 12 updates an epoch)
 TRAIN_VIDEOS_PER_BRAND, TRAIN_IMGS_PER_BRAND = 8, 8
@@ -602,6 +625,119 @@ def check_gru_train(dev):
             "library_ms": library_ms}, fwd
 
 
+def k1_records(dev, b, dtype, backward, seed):
+    """K1 at T=64, H=1024 and batch b in `dtype` against its plain version
+    (float32 at K1_TOL / K1B_TOL; bfloat16 within check_edges' bf16
+    tolerances, since h is stored in bfloat16 and a float32 sum-order
+    difference that crosses a rounding boundary moves h by one bf16 ulp),
+    timed beside the plain version and cuDNN's bidirectional GRU in the
+    same dtype (its forward includes the input projection; its backward
+    also forms the input and weight grads). Bounds: each input read once
+    and each output written once (xw, h and the grads in `dtype`, the
+    recurrent weights and biases float32 as the wrapper takes them), and
+    the recurrent products at the dtype's peak (bfloat16: the tensor cores'
+    989 TFLOP/s). -> [forward record] or [forward, backward]."""
+    import torch
+    from fancyrec_tpu_torch.ops.gru_scan import (
+        gru_scan_bwd_cuda, gru_scan_bwd_ref, gru_scan_cuda, gru_scan_ref)
+
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    peak = BF16_FLOPS if bf16 else F32_FLOPS
+    tol, tol_b = (K1_BF16_TOL, K1B_BF16_TOL) if bf16 else (K1_TOL, K1B_TOL)
+    tag = "%s B=%d" % ("bf16" if bf16 else "f32", b)
+    sfx = ("_bf16" if bf16 else "") + "_b%d" % b
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xw, w_hh, b_hh = _gru_inputs(g, dev, T, b, H)
+    xw = xw.to(dtype)
+    rnn = torch.nn.GRU(D_IN, H, bidirectional=True).to(dev, dtype)
+    with torch.no_grad():
+        for d, sfx_ in ((0, "l0"), (1, "l0_reverse")):
+            getattr(rnn, "weight_hh_" + sfx_).copy_(w_hh[d])
+            getattr(rnn, "bias_hh_" + sfx_).copy_(b_hh[d])
+    x = torch.randn(T, b, D_IN, generator=g, device=dev).to(dtype)
+    with torch.no_grad():
+        out = gru_scan_cuda(xw, w_hh, b_hh)
+        err = (out.float() - gru_scan_ref(xw, w_hh, b_hh).float()
+               ).abs().max().item()
+        log("gru_scan %s: max |kernel - plain| = %.3g (tolerance %g)"
+            % (tag, err, tol))
+        if not err <= tol:
+            fail("gru_scan %s disagrees with its plain version" % tag)
+        fwd = {"name": "gru_scan" + sfx, "counter": "gru_scan",
+               "route": "cuda", "source": "fancyrec_tpu_torch/csrc/gru_scan.cu",
+               "replaces": "fancyrec_tpu/ops/gru_scan.py:157",
+               "max_abs_err": err,
+               "ms": cuda_ms(lambda: gru_scan_cuda(xw, w_hh, b_hh), 20),
+               "plain_ms": cuda_ms(lambda: gru_scan_ref(xw, w_hh, b_hh), 2),
+               "library_ms": cuda_ms(lambda: rnn(x), 20),
+               **roofline(size * (xw.numel() + out.numel())
+                          + 4 * (w_hh.numel() + b_hh.numel()),
+                          2 * (T - 1) * 2 * b * 3 * H * H, peak)}
+    log("gru_scan %s: kernel %.3f ms, plain %.3f ms, cuDNN GRU forward %.3f "
+        "ms, bound %.4f ms (%s)" % (tag, fwd["ms"], fwd["plain_ms"],
+                                    fwd["library_ms"], fwd["bound_ms"],
+                                    fwd["bound_by"]))
+    if not backward:
+        return [fwd]
+    with torch.no_grad():
+        h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
+        dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+        got = gru_scan_bwd_cuda(xw, h_prev, dout, w_hh, b_hh)
+        want = gru_scan_bwd_ref(xw, h_prev, dout, w_hh, b_hh)
+        err_b = max((p.float() - q.float()).abs().max().item()
+                    for p, q in zip(got, want))
+        scale = max(q.float().abs().max().item() for q in want)
+        log("gru_scan_bwd %s: max |kernel - plain| = %.3g over dxw and danp "
+            "(|plain| max %.3g; tolerance %g)" % (tag, err_b, scale, tol_b))
+        if not err_b <= tol_b:
+            fail("gru_scan_bwd %s disagrees with its plain version" % tag)
+        ms = statistics.median(cuda_ms(lambda: gru_scan_bwd_cuda(
+            xw, h_prev, dout, w_hh, b_hh), 10) for _ in range(3))
+        plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xw, h_prev, dout, w_hh,
+                                                    b_hh), 1)
+        nbytes = (size * (xw.numel() + h_prev.numel() + dout.numel()
+                          + got[0].numel() + got[1].numel())
+                  + 4 * (w_hh.numel() + b_hh.numel()))
+        del got, want
+    xg = x.detach().requires_grad_(True)
+    y = rnn(xg)[0]
+    dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+    params = [xg] + list(rnn.parameters())
+    library_ms = statistics.median(cuda_ms(lambda: torch.autograd.grad(
+        y, params, dy, retain_graph=True), 10) for _ in range(3))
+    bwd = {"name": "gru_scan_bwd" + sfx, "counter": "gru_scan_bwd",
+           "route": "cuda", "source": "fancyrec_tpu_torch/csrc/gru_scan.cu",
+           "replaces": "fancyrec_tpu/ops/gru_scan.py:211",
+           "max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           **roofline(nbytes, 2 * 2 * (T - 1) * 2 * b * 3 * H * H, peak)}
+    log("gru_scan_bwd %s: kernel %.3f ms (median of 3 windows of 10), plain "
+        "%.3f ms, cuDNN GRU backward %.3f ms, bound %.4f ms (%s)"
+        % (tag, ms, plain_ms, library_ms, bwd["bound_ms"], bwd["bound_by"]))
+    return [fwd, bwd]
+
+
+def check_k1_fast(dev):
+    """K1 at the throughput mode's shapes. Its training path runs K1 in
+    float32 at B=64 (the microbatch): the JAX package's bi-GRU takes the
+    dtype of its input, and both towers hand it float32 under --dtype
+    bfloat16. The bfloat16 kernels, which no main path reaches, are
+    checked and timed at the recipe width too: forward and backward at
+    B=64, forward at B=128. -> (records of the training path's K1, records
+    of the bf16 K1)."""
+    import torch
+    on_path = k1_records(dev, B_FAST, torch.float32, True, SEED + 8)
+    bf16 = (k1_records(dev, B_FAST, torch.bfloat16, True, SEED + 9)
+            + k1_records(dev, B_ENC, torch.bfloat16, False, SEED + 10))
+    for r in on_path:
+        r["path"] = "fast training"
+    for r in bf16:
+        r["path"] = "none: the fast path runs K1 in float32"
+    torch.cuda.empty_cache()
+    return on_path, bf16
+
+
 GRU_ROWS = (8, 16, 32)      # the K1 kernels' batch rows a block
 
 
@@ -693,19 +829,21 @@ def sweep_gru_rows(dev):
             "picked %.3f ms" % (b, K1_TOL, ", ".join(cells), picked))
 
 
-def check_aspect_dropout(dev):
-    """K2 at the training shape (B=8, A=2000, C=1024, keep 0.5): the keep
-    bits the forward writes equal the packed plain Philox mask bit for bit;
-    the forward (with and without bits) and the backward from those bits
-    agree with the plain versions, and two calls give the same bits. Times:
-    the wrapper calls, the C entries alone on buffers made once, and the
+def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
+    """K2 at a training shape (B=8, bin/instance.sh's microbatch, or B=64,
+    the throughput mode's; A=2000, C=1024, keep 0.5): the keep bits the
+    forward writes equal the packed plain Philox mask bit for bit; the
+    forward (with and without bits) and the backward from those bits agree
+    with the plain versions, and two calls give the same bits. Times: the
+    wrapper calls, the C entries alone on buffers made once, and the
     device time of their kernels. Bounds: the forward's from the SASS of
-    its per-block step (`k2_sass_ops`), the backward's from its bytes."""
+    its per-block step (`k2_sass_ops`, passed in where it was counted
+    already), the backward's from its bytes. -> (the two records, sass)."""
     import torch
     from fancyrec_tpu_torch.ops import brand_dropout as bd
     from fancyrec_tpu_torch.ops import _build
 
-    b, a, c = B_TRAIN, N_ASPECTS, DIM
+    a, c = N_ASPECTS, DIM
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     w = torch.randn(b, a, generator=g, device=dev)
     asp = torch.randn(a, c, generator=g, device=dev)
@@ -718,10 +856,13 @@ def check_aspect_dropout(dev):
            "aspects in turn" if plan.bwd_blocks else "block a group of 4 "
            "aspects"))
     with torch.no_grad():
-        mask = torch.cat([bd.dropout_mask(K2_SEED, thr, b, a, c, lo,
-                                          min(lo + 250, a), dev)
-                          for lo in range(0, a, 250)], dim=1)
-        want_bits = bd.pack_keep_bits(mask)
+        # the plain mask a span of aspects at a time, packed as it comes
+        chunks = [bd.dropout_mask(K2_SEED, thr, b, a, c, lo,
+                                  min(lo + 250, a), dev)
+                  for lo in range(0, a, 250)]
+        kept = sum(int(m.sum()) for m in chunks)
+        want_bits = torch.cat([bd.pack_keep_bits(m) for m in chunks], dim=1)
+        del chunks
         out_k, bits_k = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
                                                    with_bits=True)
         out_k2, bits_k2 = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
@@ -737,10 +878,10 @@ def check_aspect_dropout(dev):
                 and torch.equal(out_k, out_nb)):
             fail("aspect dropout: two forward calls (with and without bits) "
                  "differ")
-        log("aspect_dropout: the forward's keep bits equal the packed plain "
-            "mask bit for bit (%d elements, %d words, kept share %.5f); two "
-            "calls and the call without bits give the same output bits"
-            % (mask.numel(), want_bits.numel(), mask.float().mean().item()))
+        log("aspect_dropout at B=%d: the forward's keep bits equal the "
+            "packed plain mask bit for bit (%d elements, %d words, kept share "
+            "%.5f); two calls and the call without bits give the same output "
+            "bits" % (b, b * a * c, want_bits.numel(), kept / (b * a * c)))
         out_p = bd.aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP)
         dw_k, dasp_k = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
         dw_k2, dasp_k2 = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
@@ -749,9 +890,9 @@ def check_aspect_dropout(dev):
         err_f = (out_k - out_p).abs().max().item()
         err_b = max((dw_k - dw_p).abs().max().item(),
                     (dasp_k - dasp_p).abs().max().item())
-        log("aspect_dropout: max |kernel - plain| forward %.3g, backward from "
-            "the bits against the plain backward from the seed %.3g "
-            "(tolerance %g)" % (err_f, err_b, K2_TOL))
+        log("aspect_dropout at B=%d: max |kernel - plain| forward %.3g, "
+            "backward from the bits against the plain backward from the seed "
+            "%.3g (tolerance %g)" % (b, err_f, err_b, K2_TOL))
         if not (err_f <= K2_TOL and err_b <= K2_TOL):
             fail("aspect dropout kernels disagree with their plain versions")
         if not (torch.equal(dw_k, dw_k2) and torch.equal(dasp_k, dasp_k2)):
@@ -765,16 +906,19 @@ def check_aspect_dropout(dev):
         entry = k2_entries(w, asp, gr, K2_SEED, KEEP)
         entry_ms = {k: cuda_ms(fn, 50) for k, fn in entry.items()}
         dev_ms = {k: device_ms(fn, 20) for k, fn in entry.items()}
+        reps = 3 if b <= B_TRAIN else 1         # the plain versions are slow
         fwd_plain = cuda_ms(lambda: bd.aspect_dropout_fwd_ref(
-            w, asp, K2_SEED, KEEP, with_bits=True), 3)
+            w, asp, K2_SEED, KEEP, with_bits=True), reps)
         bwd_plain = cuda_ms(lambda: bd.aspect_dropout_bwd_bits_ref(
-            w, asp, gr, bits_k, KEEP), 3)
-    log("aspect_dropout: wrapper call (median of 5) forward (with bits) "
-        "%.4f ms, backward %.4f ms, forward + backward %.4f ms; C entry alone forward %.4f, "
-        "backward %.4f, forward + backward %.4f ms; device time (profiler "
-        "union a call) forward %.4f, backward %.4f, both %.4f ms; plain "
-        "forward %.3f ms, plain backward from the bits %.3f ms"
-        % (fwd_ms, bwd_ms, fwd_ms + bwd_ms, entry_ms["fwd"], entry_ms["bwd"],
+            w, asp, gr, bits_k, KEEP), reps)
+    log("aspect_dropout at B=%d: wrapper call (median of 5) forward (with "
+        "bits) %.4f ms, backward %.4f ms, forward + backward %.4f ms; C entry "
+        "alone forward %.4f, backward %.4f, forward + backward %.4f ms; "
+        "device time (profiler union a call) forward %.4f, backward %.4f, "
+        "both %.4f ms; plain forward %.3f ms, plain backward from the bits "
+        "%.3f ms"
+        % (b, fwd_ms, bwd_ms, fwd_ms + bwd_ms, entry_ms["fwd"],
+           entry_ms["bwd"],
            entry_ms["both"], dev_ms["fwd"], dev_ms["bwd"], dev_ms["both"],
            fwd_plain, bwd_plain))
     # the forward's integer work: the SASS of its per-block step (one
@@ -786,10 +930,9 @@ def check_aspect_dropout(dev):
     # datapath apart. The pipes issue side by side: the busiest bounds the
     # time. An integer instruction counts as F32_FLOPS / INT32_OPS flops,
     # an FFMA as 2
-    sass = k2_sass_ops(dev)
+    sass = sass or k2_sass_ops(dev)
     step = sass["step"]
     blocks = b * a * c // 4
-    kept = int(mask.sum())
     fwd_ops = max(blocks * max(step["alu"], step["fma"]) * F32_FLOPS
                   / INT32_OPS, blocks * 2 * step["float"], 2 * kept)
     bounds = [roofline(4 * (w.numel() + asp.numel() + out_k.numel()
@@ -797,10 +940,10 @@ def check_aspect_dropout(dev):
               roofline(4 * (w.numel() + asp.numel() + gr.numel()
                             + bits_k.numel() + dw_k.numel()
                             + dasp_k.numel()), 4 * kept, F32_FLOPS)]
-    log("aspect_dropout: bounds %.4f ms forward (%s), %.4f ms backward (%s); "
-        "the wrapper calls at %.0f%% and %.0f%% of them, the C entries alone "
-        "at %.0f%% and %.0f%%"
-        % (bounds[0]["bound_ms"], bounds[0]["bound_by"],
+    log("aspect_dropout at B=%d: bounds %.4f ms forward (%s), %.4f ms "
+        "backward (%s); the wrapper calls at %.0f%% and %.0f%% of them, the C "
+        "entries alone at %.0f%% and %.0f%%"
+        % (b, bounds[0]["bound_ms"], bounds[0]["bound_by"],
            bounds[1]["bound_ms"], bounds[1]["bound_by"],
            100 * bounds[0]["bound_ms"] / fwd_ms,
            100 * bounds[1]["bound_ms"] / bwd_ms,
@@ -808,21 +951,23 @@ def check_aspect_dropout(dev):
            100 * bounds[1]["bound_ms"] / entry_ms["bwd"]))
     common = {"route": "cuda",
               "source": "fancyrec_tpu_torch/csrc/aspect_dropout.cu",
-              "library_ms": None}
+              "library_ms": None,
+              "path": "training" if b == B_TRAIN else "fast training"}
+    sfx = "" if b == B_TRAIN else "_b%d" % b
     # `ms` is the wrapper call, as for every kernel; beside it the C entry
     # alone on buffers made once and the device time of its kernels
     return [
-        {"name": "aspect_dropout_fwd",
+        {"name": "aspect_dropout_fwd" + sfx, "counter": "aspect_dropout_fwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:130",
          "max_abs_err": err_f, "ms": fwd_ms, "plain_ms": fwd_plain,
          "entry_ms": entry_ms["fwd"], "device_ms": dev_ms["fwd"],
          **bounds[0], **common},
-        {"name": "aspect_dropout_bwd",
+        {"name": "aspect_dropout_bwd" + sfx, "counter": "aspect_dropout_bwd",
          "replaces": "fancyrec_tpu/ops/brand_pallas.py:175",
          "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": bwd_plain,
          "entry_ms": entry_ms["bwd"], "device_ms": dev_ms["bwd"],
          **bounds[1], **common},
-    ]
+    ], sass
 
 
 def k2_entries(w, asp, g, seed, keep):
@@ -1591,7 +1736,7 @@ def _kernel_group(name):
         return "K2 aspect_dropout"
     if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
         return "convolutions (cuDNN)"
-    if any(s in low for s in ("gemm", "gemv", "xmma")):
+    if any(s in low for s in ("gemm", "gemv", "xmma", "nvjet")):
         return "matrix products (cuBLAS)"
     return "other (elementwise, reductions, copies, optimizer)"
 
@@ -1726,9 +1871,10 @@ def train_path(root, dev):
     return counts, rec
 
 
-def tester_path(root, dev):
+def tester_path(root, dev, postfix="chip_smoke"):
     """Phase 6: the tester CLI on the card on the checkpoint that phase 5c's
-    trainer wrote, over the test split at recipe width. The kernels' counts
+    trainer (or, with postfix "fast", phase 7's) wrote, over the test split
+    at recipe width. The kernels' counts
     are zeroed just before it and read just after (the metrics are read on
     the host, which waits for the card). Its ranking is recorded as it
     runs, so that the plain cosine of the same embeddings can be ranked
@@ -1741,7 +1887,7 @@ def tester_path(root, dev):
     from fancyrec_tpu_torch.ops.similarity import (
         cosine_scores_cuda, cosine_scores_ref)
 
-    logdir = os.path.join(root, "model", "chip_smoke")
+    logdir = os.path.join(root, "model", postfix)
     seen = {}
     ranking = tester.test_post_ranking
 
@@ -1761,10 +1907,11 @@ def tester_path(root, dev):
     finally:
         tester.test_post_ranking = ranking
     n_batches = -(-N_EVAL // B_ENC)
-    log("tester CLI, %d test posts in %d batches at recipe width: %.2f s "
-        "wall; AUC %.6f NDCG@10 %.6f NDCG@50 %.6f R@1/5/10 %.2f/%.2f/%.2f "
-        "MedR %g MeanR %g" % (N_EVAL, n_batches, wall, m.auc, m.ndcg10,
-                              m.ndcg50, m.r1, m.r5, m.r10, m.medr, m.meanr))
+    log("tester CLI on %s, %d test posts in %d batches at recipe width: "
+        "%.2f s wall; AUC %.6f NDCG@10 %.6f NDCG@50 %.6f R@1/5/10 "
+        "%.2f/%.2f/%.2f MedR %g MeanR %g"
+        % (postfix, N_EVAL, n_batches, wall, m.auc, m.ndcg10, m.ndcg50, m.r1,
+           m.r5, m.r10, m.medr, m.meanr))
     log("evaluation path launches: %s" % counts)
     if not all(math.isfinite(v) for v in m):
         fail("the tester's metrics are not finite: %s" % (m,))
@@ -1796,6 +1943,306 @@ def tester_path(root, dev):
         fail("the tester's metrics %s differ from the plain cosine's %s"
              % (m, want))
     return counts
+
+
+def fast_path(root, dev):
+    """Phase 7c: the JAX package's documented throughput mode through the
+    trainer CLI on the card: bin/instance.sh's model flags with
+    FAST_FLAGS (batch 64, accumulation 1, bfloat16 towers, bfloat16
+    staging) and --profile_dir, for three epochs on the 816-post fixture:
+    epoch 0 carries the first calls' set-up, epoch 1 is traced (the
+    trainer profiles epoch min(1, num_epochs - 1)) and epoch 2 is the
+    steady, unprofiled measurement. The kernels' counts are zeroed
+    just before and read just after. The trace must exist, be non-empty
+    and hold device kernels (`utils.profiling.trace` raises otherwise)."""
+    from fancyrec_tpu_torch.train import trainer
+
+    prof = os.path.join(root, "fast_profile")
+    zero_counts()
+    t0 = time.time()
+    best = trainer.main(instance_args(root, "fast", 3) + FAST_FLAGS
+                        + ["--profile_dir", prof, "--device", str(dev)])
+    wall = time.time() - t0
+    counts = read_counts()
+    logdir = os.path.join(root, "model", "fast")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    for r in recs:
+        log("fast mode (batch %d, accumulation 1, bfloat16 towers and "
+            "staging) epoch %d%s: %d updates of %d posts in %.2f s: %.1f ms "
+            "per update, %.1f posts/s; loss %.4f; validation score %.4f (AUC "
+            "%.4f); device peak %.2f GB"
+            % (B_FAST, r["epoch"], " (under the profiler)" if r["epoch"] == 1
+               else "", r["updates"], B_FAST, r["train_seconds"],
+               1e3 * r["train_seconds"] / max(r["updates"], 1),
+               r["posts_per_s"], r["loss"], r["score"], r["auc"],
+               r.get("device_peak_bytes", 0) / 1e9))
+    log("fast mode trainer CLI, 3 epochs: %.1f s wall, best score %.4f"
+        % (wall, best))
+    log("fast training path launches: %s" % counts)
+    traces = os.listdir(prof) if os.path.isdir(prof) else []
+    sizes = [os.path.getsize(os.path.join(prof, t)) for t in traces]
+    log("--profile_dir: %s" % ", ".join(
+        "%s %d bytes" % (t, n) for t, n in zip(traces, sizes)))
+    if len(traces) != 1 or not sizes[0] > 0:
+        fail("--profile_dir wrote %s" % traces)
+    traced = [r for r in recs if r["epoch"] == 1]
+    if traced:
+        trace_breakdown(os.path.join(prof, traces[0]), traced[0])
+    updates = sum(r["updates"] for r in recs)
+    if not (len(recs) == 3 and updates >= 3
+            and all(math.isfinite(r["loss"]) for r in recs)):
+        fail("the fast-mode trainer ran no update or its loss is not "
+             "finite: %s" % recs)
+    for name in ("gru_scan_bwd", "aspect_dropout_fwd", "aspect_dropout_bwd"):
+        if counts[name] != updates:
+            fail("%s launched %d times for %d updates of one microbatch"
+                 % (name, counts[name], updates))
+    if counts["gru_scan"] < updates or counts["cosine_scores"] != 3:
+        fail("fast mode: gru_scan launched %d times for %d updates, "
+             "cosine_scores %d times in 3 validations"
+             % (counts["gru_scan"], updates, counts["cosine_scores"]))
+    return counts, recs
+
+
+def trace_breakdown(path, rec):
+    """Where the traced epoch's device time went, read from the Chrome
+    trace that --profile_dir wrote: its kernels' count, the union of
+    their intervals by group (PDL steps overlap, so a sum would count
+    twice) an update, and the busy share: that union over the epoch's
+    training time on the host clock, which the profiler itself slows."""
+    import gzip
+    with gzip.open(path, "rt") as f:
+        data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans, by_name = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("dur", 0) > 0:
+            spans.setdefault(_kernel_group(e["name"]), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+            n_us = by_name.setdefault(e["name"], [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e["dur"]
+    n = sum(len(v) for v in spans.values())
+    if not n:
+        fail("the --profile_dir trace %s holds no kernel" % path)
+    total = _union_ms([iv for ivs in spans.values() for iv in ivs])
+    per = max(rec["updates"], 1)
+    log("traced epoch %d: %d kernels, device busy %.1f ms (%.2f ms an "
+        "update) in %.2f s of training: busy share %.3f under the profiler"
+        % (rec["epoch"], n, total, total / per, rec["train_seconds"],
+           total / (1e3 * rec["train_seconds"])))
+    for g, ivs in sorted(spans.items(), key=lambda kv: -_union_ms(kv[1])):
+        ms = _union_ms(ivs)
+        log("  %-52s %8.2f ms an update  %5.1f%%"
+            % (g, ms / per, 100 * ms / total))
+    for name, (count, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:10]:
+        log("  kernel %-64.64s x%-5d %8.2f ms an update"
+            % (name.replace("(anonymous namespace)::", ""), count,
+               us / 1e3 / per))
+
+
+def _flat_grads(grads):
+    import torch
+    return torch.cat([grads[k].reshape(-1).float() for k in sorted(grads)])
+
+
+def bf16_step_card_vs_cpu(root, dev):
+    """Phase 7a: one update of the throughput mode (bfloat16 towers, the
+    batch staged in bfloat16) on the card against the same update on the
+    CPU, from the same weights and brand seed words, the tower dropouts at
+    0: 16 posts, one microbatch (the CPU side at recipe width sets the
+    size). bfloat16 grads are rounding-sensitive (the loss divides cosines
+    by 0.03), so the yardstick is the same update in float32 on the card,
+    which the card's bfloat16 grads miss by a relative L2 distance d (over
+    all parameters). Two bfloat16 runs whose roundings were independent
+    would lie about sqrt(2) d apart; the card's and the CPU's bfloat16
+    grads, which round the same casts of the same inputs and differ in sum
+    order, must lie nearer than that. The losses within 1e-2 relative."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.losses import init_queue_state
+    from fancyrec_tpu_torch.models import FancyRec, init_fancyrec
+    from fancyrec_tpu_torch.train.state import TrainState, make_optimizer
+    from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
+    from fancyrec_tpu_torch.train.trainer import _superbatches, build_datasets
+
+    n = 16
+    cfg = config_from_args(build_train_parser().parse_args(
+        instance_args(root, "bf16_check", 1) + FAST_FLAGS
+        + ["--batch_size", str(n), "--dropout", "0", "--bert_dropout", "0"]))
+    train_set = build_datasets(cfg)["train"]
+    cfg.finalize()
+    pick = np.random.RandomState(SEED + 2).permutation(len(train_set))[:n]
+    (staged,) = list(_superbatches([train_set.gather_batch(pick)], 1,
+                                   transfer_dtype=cfg.transfer_dtype))
+    out = {}
+    for where, dtype in ((dev, "bfloat16"), (dev, "float32"),
+                         (torch.device("cpu"), "bfloat16")):
+        cfg.dtype = dtype
+        model = init_fancyrec(FancyRec(cfg), torch.Generator().manual_seed(
+            SEED)).to(where).seed_dropout(SEED)
+        opt = make_optimizer(cfg, model.parameters())
+        state = TrainState(queue=init_queue_state(cfg.queue_size, DIM,
+                                                  device=where))
+        sb = {k: torch.as_tensor(v).to(where) for k, v in staged.items()}
+        t0 = time.time()
+        _, metrics = train_step(model, opt, cfg, state, sb)
+        loss = float(metrics["loss"])
+        log("bf16 check: train step in %s on %s: %.2f s, loss %.6f"
+            % (dtype, where, time.time() - t0, loss))
+        out[where.type, dtype] = (loss, _flat_grads(
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+        del model, opt, state, sb
+    (l_card, g_card), (_, g_f32), (l_cpu, g_cpu) = (
+        out["cuda", "bfloat16"], out["cuda", "float32"],
+        out["cpu", "bfloat16"])
+    err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    spread = float((g_card - g_f32).norm() / g_f32.norm())
+    log("bf16 update card vs CPU: losses %.6f and %.6f (%.3g relative; "
+        "tolerance 1e-2); grads %.4f apart in relative L2, the card's bf16 "
+        "grads %.4f from its float32 grads (bound: sqrt(2) x that, %.4f)"
+        % (l_card, l_cpu, abs(l_card - l_cpu) / abs(l_cpu), err, spread,
+           math.sqrt(2) * spread))
+    if not (abs(l_card - l_cpu) <= 1e-2 * abs(l_cpu)
+            and err < math.sqrt(2) * spread):
+        fail("the card's bf16 update disagrees with the CPU's")
+    return {"loss_rel": abs(l_card - l_cpu) / abs(l_cpu), "grad_rel_l2": err,
+            "bf16_vs_f32": spread}
+
+
+def remat_card(root, dev):
+    """Phase 7b: --bert_remat 1 on the card. One float32 update at the
+    throughput mode's batch (64, accumulation 1) with bin/instance.sh's
+    dropouts on (towers 0.2, BERT 0.1), from the same weights and seeds,
+    with and without remat, cuDNN held to its deterministic algorithms
+    (with its default ones two runs without remat already differ in the
+    last bits of the grads): the recompute replays the dropout
+    generators, so the losses and every grad must be bit-identical.
+    Reports each run's peak device memory."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.train.state import init_state
+    from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
+    from fancyrec_tpu_torch.train.trainer import build_datasets
+
+    pick = None
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for remat in (0, 1):
+        cfg = config_from_args(build_train_parser().parse_args(
+            instance_args(root, "remat", 1)
+            + ["--batch_size", str(B_FAST), "--accumulation_step", "1",
+               "--bert_remat", str(remat)]))
+        train_set = build_datasets(cfg)["train"]
+        cfg.finalize()
+        if pick is None:
+            pick = np.random.RandomState(SEED + 3).permutation(
+                len(train_set))[:B_FAST]
+        sb = {k: torch.from_numpy(v).to(dev) for k, v in stack_microbatches(
+            [train_set.gather_batch(pick)]).items()}
+        model, opt, state = init_state(cfg, dev, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        _, metrics = train_step(model, opt, cfg, state, sb)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[remat] = (loss, {k: p.grad.detach().clone()
+                              for k, p in model.named_parameters()},
+                       peak, peak - base, ms)
+        del model, opt, state, sb
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    (l0, g0, p0, a0, t0_), (l1, g1, p1, a1, t1_) = runs[0], runs[1]
+    differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    log("--bert_remat on the card (float32, batch %d, dropout on, cuDNN "
+        "deterministic): loss %.6f with remat, %.6f without; %d of %d grads "
+        "differ (tolerance: none); peak device memory %.3f GB with remat, "
+        "%.3f GB without (above the weights: %.3f and %.3f GB); first update "
+        "%.0f and %.0f ms"
+        % (B_FAST, l1, l0, len(differ), len(g0), 1e-9 * p1, 1e-9 * p0,
+           1e-9 * a1, 1e-9 * a0, t1_, t0_))
+    if l1 != l0 or differ:
+        fail("--bert_remat changes the update: %s" % differ[:5])
+    return {"peak_remat": p1, "peak_plain": p0}
+
+
+def tiny_batch(cfg, b, seed):
+    """A seeded batch at a small model's widths (padded frames and tokens,
+    ragged lengths), built with numpy alone."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    tok = cfg.max_tokens if cfg.text_net == "transformers" else cfg.max_words
+    flen = rng.randint(1, cfg.max_frames, b)
+    tlen = rng.randint(1, tok, b)
+    vmask = (np.arange(cfg.max_frames)[None] < flen[:, None]).astype(
+        np.float32)
+    tmask = (np.arange(tok)[None] < tlen[:, None]).astype(np.int32)
+    hi = (cfg.bert_vocab_size if cfg.text_net == "transformers"
+          else cfg.vocab_size)
+    return {
+        "frames": (rng.randn(b, cfg.max_frames, cfg.visual_feat_dim)
+                   * vmask[..., None]).astype(np.float32),
+        "origin": rng.randn(b, cfg.visual_feat_dim).astype(np.float32),
+        "vmask": vmask,
+        "bows": rng.rand(b, cfg.bow_vocab_size).astype(np.float32),
+        "tokens": (rng.randint(1, hi, (b, tok)) * tmask).astype(np.int32),
+        "type_ids": np.zeros((b, tok), np.int32),
+        "tmask": tmask,
+    }
+
+
+def frtpu1_card(dev):
+    """Phase 8: a checkpoint the JAX package wrote (FRTPU1, the committed
+    tests/data/frtpu1_tiny.pth.tar, regenerated byte for byte by the CPU
+    tests) read by `load_any` onto the card: a seeded batch encoded on the
+    card equals the CPU's encode within ENC_TOL, and its Adam moments load
+    into a card optimizer unchanged. The model is tiny, so this proves the
+    read path, not a width."""
+    import torch
+    from fancyrec_tpu_torch.eval.evaluator import encode_batch
+    from fancyrec_tpu_torch.models import FancyRec
+    from fancyrec_tpu_torch.train.checkpoints import load_any
+    from fancyrec_tpu_torch.train.state import (
+        load_optimizer_state, make_optimizer)
+
+    path = os.path.join(HERE, "tests", "data", "frtpu1_tiny.pth.tar")
+    ck = load_any(path)
+    cfg = ck["config"]
+    batch = tiny_batch(cfg, 5, SEED + 4)
+    embs = {}
+    for where in (dev, torch.device("cpu")):
+        model = FancyRec(cfg)
+        model.load_state_dict(ck["state_dict"])
+        model.to(where).eval()
+        with torch.no_grad():
+            embs[where.type] = encode_batch(model, {
+                k: torch.from_numpy(v).to(where)
+                for k, v in batch.items()}).cpu()
+    opt = make_optimizer(cfg, model.to(dev).parameters())
+    load_optimizer_state(opt, model, ck["optimizer"])
+    names = [n for n, _ in model.named_parameters()]
+    moved = all(
+        opt.state[p]["exp_avg"].device.type == "cuda"
+        and torch.equal(opt.state[p]["exp_avg"].cpu(),
+                        ck["optimizer"]["state"][n]["exp_avg"])
+        for n, p in zip(names, model.parameters()))
+    err = (embs["cuda"] - embs["cpu"]).abs().max().item()
+    log("FRTPU1 %s (epoch %s, Eiters %s, %d tensors): card encode vs CPU "
+        "max |diff| %.3g (tolerance atol %g rtol %g); Adam moments on the "
+        "card equal the file's: %s"
+        % (os.path.basename(path), ck["epoch"], ck["Eiters"],
+           len(ck["state_dict"]), err, ENC_TOL["atol"], ENC_TOL["rtol"],
+           moved))
+    if not (torch.allclose(embs["cuda"], embs["cpu"], **ENC_TOL) and moved):
+        fail("the FRTPU1 checkpoint on the card disagrees with the CPU")
 
 
 def main():
@@ -1838,9 +2285,15 @@ def main():
     # 3. kernels vs their plain versions
     gru_bwd, fwd_b8 = check_gru_train(dev)
     sweep_gru_rows(dev)
-    kernels = ([check_gru(dev), check_topk(dev), gru_bwd]
-               + check_aspect_dropout(dev) + [check_cosine(dev)])
+    k2, sass = check_aspect_dropout(dev)
+    kernels = [check_gru(dev), check_topk(dev), gru_bwd] + k2 + [
+        check_cosine(dev)]
     check_edges(dev)
+    torch.cuda.empty_cache()
+    # the throughput mode's shapes: K1 (float32 on its path; bfloat16 off
+    # it) and K2 at batch 64
+    k1_fast, k1_bf16 = check_k1_fast(dev)
+    kernels += k1_fast + check_aspect_dropout(dev, B_FAST, sass)[0]
     torch.cuda.empty_cache()
 
     work = os.path.join(HERE, "build", "chip_smoke")
@@ -1870,24 +2323,46 @@ def main():
         torch.cuda.empty_cache()
         # 6. evaluation: the tester CLI on the trained checkpoint
         evaluation = tester_path(root, dev)
+        torch.cuda.empty_cache()
+        # 7. the throughput mode: one bf16 update against the CPU's, remat,
+        # then the trainer CLI (profiled) and the tester on its checkpoint
+        bf16_step_card_vs_cpu(root, dev)
+        torch.cuda.empty_cache()
+        remat_card(root, dev)
+        torch.cuda.empty_cache()
+        fast, _ = fast_path(root, dev)
+        torch.cuda.empty_cache()
+        tester_path(root, dev, "fast")
+        # 8. a checkpoint the JAX package wrote, on the card
+        frtpu1_card(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
         "forward %.3f ms); launches on the training path: %d"
         % (B_TRAIN, fwd_b8["ms"], fwd_b8["library_ms"], training["gru_scan"]))
-    paths = {"gru_scan": serving, "topk_int8": serving,
-             "cosine_scores": evaluation}
+    paths = {"serving": serving, "training": training,
+             "evaluation": evaluation, "fast training": fast}
+    home = {"gru_scan": "serving", "topk_int8": "serving",
+            "cosine_scores": "evaluation"}
     for k in kernels:
-        k["launches"] = paths.get(k["name"], training)[k["name"]]
+        k.setdefault("path", home.get(k["name"], "training"))
+        k["launches"] = paths[k["path"]][k.get("counter", k["name"])]
         if k["launches"] < 1:
             fail("%s was not launched on its main path" % k["name"])
-
-    # the contract's keys, then, where a record has them, its C entry's time
-    # on buffers made once and its kernels' device time
+    # the bf16 K1 runs on no main path: its numbers go on a line of their own
+    for k in k1_bf16:
+        k["launches"] = 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log("K1 in bfloat16, on no main path (the fast mode runs K1 in float32, "
+        "as the JAX package does): %s"
+        % json.dumps([{k: r[k] for k in keys} for r in k1_bf16]))
+
+    # the contract's keys, then, where a record has them, its C entry's time
+    # on buffers made once, its kernels' device time, and its path
     print(json.dumps({"kernels": [
-        {k: kern[k] for k in keys + ("entry_ms", "device_ms") if k in kern}
+        {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path")
+         if k in kern}
         for kern in kernels]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

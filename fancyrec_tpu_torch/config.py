@@ -176,10 +176,13 @@ class Config:
     # ------------------------------------------------------------------
     def finalize(self) -> "Config":
         """Compute derived sizes. Mirrors trainer.py:154-155,182-234."""
+        if self.dtype not in ("", "float32", "bfloat16"):
+            raise ValueError("--dtype must be float32 or bfloat16, got %r"
+                             % self.dtype)
         if self.transfer_dtype not in ("", "bfloat16"):
             # fail at parse time, not minutes later in the prefetch
             # thread; only bfloat16 has a matching on-device upcast
-            # (train/step._micro_loss)
+            # (train/step.micro_loss)
             raise ValueError(
                 "--transfer_dtype must be '' or 'bfloat16', got %r"
                 % self.transfer_dtype)
@@ -418,13 +421,10 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 
 # flags the port does not implement, with the value that means "off": the
-# JAX package's meshes, pipelining, sequence sharding, dropout PRNG choice,
-# XLA compile cache, bf16 host staging and profiler, and BERT
-# rematerialization (torch's checkpointing would redraw the dropout masks
-# from the explicit generators on recompute)
+# JAX package's meshes, pipelining, sequence sharding, dropout PRNG choice
+# and XLA compile cache
 _NOT_PORTED = {"mesh_shape": "", "seq_shard": False, "rng_impl": "threefry",
-               "compilation_cache_dir": "", "transfer_dtype": "",
-               "profile_dir": "", "bert_remat": 0}
+               "compilation_cache_dir": ""}
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

@@ -115,12 +115,14 @@ class BatchLoader:
 
 def _pin(batch: Dict[str, np.ndarray], keys, pin: bool
          ) -> Dict[str, torch.Tensor]:
-    """numpy arrays -> host tensors (page-locked when `pin`), so the
-    copy to the device can run asynchronously."""
+    """numpy arrays (or host tensors) -> host tensors, page-locked when
+    `pin`, so the copy to the device can run asynchronously."""
     out = {}
     for k in keys:
         if k in batch:
-            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            t = batch[k]
+            if not isinstance(t, torch.Tensor):
+                t = torch.from_numpy(np.ascontiguousarray(t))
             out[k] = t.pin_memory() if pin else t
     return out
 

@@ -147,5 +147,5 @@ def encode_modality(model, loader, common_dim: int, encode_fn,
     for batch in loader:
         dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
                if k not in ("idxs", "n_valid")}
-        out[batch["idxs"]] = encode_fn(model, dev).cpu().numpy()
+        out[batch["idxs"]] = encode_fn(model, dev).float().cpu().numpy()
     return out

@@ -4,7 +4,11 @@ Port of `encode_data`, the single-modality encoders, `random_sim`,
 `brand_embeddings` and `test_post_ranking` from
 fancyrec_tpu/eval/evaluator.py, on one device. The brands x posts cosine
 of `test_post_ranking` is the cosine kernel (`ops.similarity.
-cosine_scores`: `csrc/cosine_scores.cu` for CUDA tensors).
+cosine_scores`: `csrc/cosine_scores.cu` for CUDA tensors). Post
+embeddings leave the towers as float32 (a bfloat16 model's are upcast,
+exactly), as the JAX package collects them into float32 buffers: the
+cosine kernel, the index's int8 quantization and the files on disk take
+float32. The brand tower is float32 under any compute dtype.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def encode_data(model, loader, common_dim: int, device: torch.device,
 
     for batch, dev in prefetch_to_device(iter(loader), device, _MODEL_KEYS,
                                          size=2, stage=stage):
-        embs = encode_batch(model, dev).cpu().numpy()
+        embs = encode_batch(model, dev).float().cpu().numpy()
         # padding rows repeat the last item and write identical values
         post_embs[batch["idxs"]] = embs
         brands[batch["idxs"]] = batch["brand_ids"]

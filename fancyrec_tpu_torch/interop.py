@@ -49,13 +49,23 @@ def _param_entry(path: str, value: np.ndarray):
     return path, value
 
 
+def torch_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX `params` -> float32 tensors keyed by the
+    port's parameter names, each in its torch layout. Takes the parameters
+    themselves or anything laid out like them, such as an optimizer's
+    moments (optax's Adam `mu` and `nu`): a moment carried without its
+    layout change would load and then train wrongly."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        key, arr = _param_entry(path, value)
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return out
+
+
 def torch_state_from_jax(params: Mapping, batch_stats: Mapping = None
                          ) -> Dict[str, torch.Tensor]:
     """The JAX variable trees -> a state dict keyed like the port's."""
-    state = {}
-    for path, value in _flatten(params).items():
-        key, arr = _param_entry(path, value)
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    state = torch_params_from_jax(params)
     for path, value in _flatten(batch_stats or {}).items():
         head, _, leaf = path.rpartition(".")
         names = {"mean": "running_mean", "var": "running_var"}

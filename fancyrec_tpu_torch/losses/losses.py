@@ -9,6 +9,12 @@ through the microbatches. Semantics kept from the JAX package:
   * post embeddings are enqueued, detached, before the logits are taken,
     and the positive mask walks from the advanced pointer;
   * only direction='all' exists for the triplet loss.
+Embeddings may come in bfloat16 (the post tower under --dtype bfloat16)
+beside float32 (the brand tower). Products follow the JAX package's
+dots: the raw scores and the cosine accumulate in float32 from their
+operands (preferred_element_type=float32); every other product takes the
+promoted dtype of its operands (`_mm`), so float32 as soon as one is; the
+normalization of a bfloat16 embedding stays in bfloat16.
 """
 
 from __future__ import annotations
@@ -22,13 +28,25 @@ def _l2norm_rows(x: torch.Tensor) -> torch.Tensor:
     return x / torch.sqrt((x * x).sum(dim=1, keepdim=True))
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two (jnp.dot's promotion)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated in float32 (preferred_element_type=float32): the
+    products of bfloat16 operands are exact in float32."""
+    return a.float() @ b.float()
+
+
 def cosine_sim(im: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    return _l2norm_rows(im) @ _l2norm_rows(s).T
+    return _mm_f32(_l2norm_rows(im), _l2norm_rows(s).T)
 
 
 def _raw_scores(brand: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
-    """scores[i, j] = brand[j] . post[i]."""
-    return post @ brand.T
+    """scores[i, j] = brand[j] . post[i], in float32."""
+    return _mm_f32(post, brand.T)
 
 
 def rank_weights(scores: torch.Tensor, axis: int) -> torch.Tensor:
@@ -86,8 +104,8 @@ def crossclr_loss(brand: torch.Tensor, post: torch.Tensor, *,
     b = brand.shape[0]
     brand_n = _l2norm_rows(brand)
     post_n = _l2norm_rows(post)
-    logits_per_brand = brand_n @ post_n.T / temperature
-    logits_per_post = post_n @ brand_n.T / temperature
+    logits_per_brand = _mm(brand_n, post_n.T) / temperature
+    logits_per_post = _mm(post_n, brand_n.T) / temperature
     logits_clstr_brand = brand_n @ brand_n.T / temperature
     logits_clstr_post = post_n @ post_n.T / temperature
     eye = torch.eye(b, device=brand.device)
@@ -145,15 +163,16 @@ def contrastive_loss(brand: torch.Tensor, post: torch.Tensor,
     else:
         k = state.queue.shape[0]
         idx = (state.ptr + rows) % k
-        queue = state.queue.index_copy(0, idx, post_n.detach())
+        queue = state.queue.index_copy(
+            0, idx, post_n.detach().to(state.queue.dtype))
         new_ptr = (state.ptr + b) % k
-        ori_logits = post_n @ queue.T                       # (B, K)
+        ori_logits = _mm(post_n, queue.T)                   # (B, K)
         cols = (new_ptr + rows) % k       # masks from the advanced pointer
         new_state = ContrastiveQueueState(queue=queue, ptr=new_ptr)
     pos_mask = torch.ones_like(ori_logits)
     pos_mask[rows, cols] = 0.0
 
-    inter = brand_n @ post_n.T / temperature
+    inter = _mm(brand_n, post_n.T) / temperature
     intra = ori_logits * pos_mask / temperature
     if no_intra:
         intra = torch.zeros_like(intra)

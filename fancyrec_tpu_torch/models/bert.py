@@ -5,8 +5,17 @@ HuggingFace BertModel truncated to 3 layers. erf-GELU, post-LayerNorm
 (eps 1e-12), an additive attention mask of float32-min on padded keys,
 scores scaled by 1/sqrt(head_dim), softmax in float32; in training mode,
 dropout on the embeddings, the attention probabilities and both residual
-branches. The JAX package has no kernel here, so neither does the port. Submodule names follow the JAX
-parameter tree (layer_0.attention.query, ..., output_ln).
+branches. The JAX package has no kernel here, so neither does the port.
+Submodule names follow the JAX parameter tree (layer_0.attention.query,
+..., output_ln).
+
+`compute_dtype` "bfloat16" is the JAX package's mixed precision: the
+Dense layers and the residual stream entering the first layer in
+bfloat16; the attention scores and context accumulated in float32 from
+bfloat16 operands; softmax, the mask and the LayerNorms (whose float32
+scale promotes their output) in float32. `remat` recomputes each layer in
+the backward pass (torch.utils.checkpoint), replaying the dropout
+generators' draws (`_remat_layer`).
 """
 
 from __future__ import annotations
@@ -17,8 +26,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from fancyrec_tpu_torch.models.layers import Dropout
+from fancyrec_tpu_torch.models.layers import Dropout, dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +43,13 @@ class BertConfig:
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
+    remat: bool = False            # recompute each layer in the backward
+    compute_dtype: str = "float32"   # "float32" or "bfloat16"
+
+    @property
+    def dt(self) -> torch.dtype:
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
 
 
 class BertSelfAttention(nn.Module):
@@ -40,6 +57,7 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.heads = cfg.num_attention_heads
+        self.dt = cfg.dt
         self.query = nn.Linear(d, d)
         self.key = nn.Linear(d, d)
         self.value = nn.Linear(d, d)
@@ -49,13 +67,17 @@ class BertSelfAttention(nn.Module):
         b, t, d = hidden.shape
         h = self.heads
         dh = d // h
-        q = self.query(hidden).view(b, t, h, dh)
-        k = self.key(hidden).view(b, t, h, dh)
-        v = self.value(hidden).view(b, t, h, dh)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        q = dense(self.query, hidden, self.dt).view(b, t, h, dh)
+        k = dense(self.key, hidden, self.dt).view(b, t, h, dh)
+        v = dense(self.value, hidden, self.dt).view(b, t, h, dh)
+        # float32 accumulation of the compute-dtype operands (the JAX
+        # package's preferred_element_type=float32); their products are
+        # exact in float32
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         scores = scores / math.sqrt(dh) + attn_bias
         probs = self.probs_drop(torch.softmax(scores, dim=-1))
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dt).float(),
+                           v.float())
         return ctx.reshape(b, t, d)
 
 
@@ -63,6 +85,7 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.dt = cfg.dt
         self.attention = BertSelfAttention(cfg)
         self.attention_output = nn.Linear(d, d)
         self.attention_ln = nn.LayerNorm(d, eps=eps)
@@ -74,10 +97,44 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden, attn_bias):
         ctx = self.attention(hidden, attn_bias)
-        hidden = self.attention_ln(
-            hidden + self.attention_drop(self.attention_output(ctx)))
-        inter = F.gelu(self.intermediate(hidden), approximate="none")
-        return self.output_ln(hidden + self.output_drop(self.output(inter)))
+        attn_out = self.attention_drop(
+            dense(self.attention_output, ctx, self.dt))
+        hidden = self.attention_ln((hidden + attn_out).float())
+        inter = F.gelu(dense(self.intermediate, hidden, self.dt),
+                       approximate="none")
+        out = self.output_drop(dense(self.output, inter, self.dt))
+        return self.output_ln((hidden + out).float())
+
+
+def _remat_layer(layer: BertLayer, hidden, attn_bias):
+    """`layer` under torch.utils.checkpoint, its recompute drawing the
+    same dropout masks as its forward: the dropouts draw from explicit
+    generators, which checkpoint's preserve_rng_state does not cover, so
+    their states are saved before the forward, set for the recompute and
+    put back after it."""
+    gens = []
+    for m in layer.modules():
+        if (isinstance(m, Dropout) and m.generator is not None
+                and all(m.generator is not g for g in gens)):
+            gens.append(m.generator)
+    saved = [g.get_state() for g in gens]
+    ran = [False]
+
+    def run(h, bias):
+        if not ran[0]:
+            ran[0] = True
+            return layer(h, bias)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        try:
+            return layer(h, bias)
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return checkpoint(run, hidden, attn_bias, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class BertEncoder(nn.Module):
@@ -104,9 +161,13 @@ class BertEncoder(nn.Module):
                   + self.position_embeddings[pos][None]
                   + self.token_type_embeddings[token_type_ids])
         hidden = self.embeddings_drop(self.embeddings_ln(hidden))
+        hidden = hidden.to(self.cfg.dt)       # the residual stream's dtype
         mask = attention_mask.float()
         attn_bias = ((1.0 - mask)[:, None, None, :]
                      * torch.finfo(torch.float32).min)
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i in range(self.cfg.num_hidden_layers):
-            hidden = getattr(self, "layer_%d" % i)(hidden, attn_bias)
+            layer = getattr(self, "layer_%d" % i)
+            hidden = (_remat_layer(layer, hidden, attn_bias) if remat
+                      else layer(hidden, attn_bias))
         return hidden

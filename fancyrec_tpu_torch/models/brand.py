@@ -10,6 +10,9 @@ with the (B, A, C) intermediate in memory:
     the card, whatever the widths or the device count; the JAX package
     keeps its TPU kernel to one device and 128-lane widths).
 The gathered weights pass through `l1_penalty` in both modes.
+The tower computes in float32 whatever the model's compute dtype, as the
+JAX tower does: its parameters are float32, it never reads its `dtype`,
+and its TPU kernel casts to float32. So K2 takes float32 only.
 """
 
 from __future__ import annotations

@@ -7,6 +7,13 @@ unnormalized level concat, as in the JAX package. Training mode
 (`module.train()`) turns on the JAX package's dropouts: after the pooled
 GRU output and the conv bank of each tower, in the mapping MFC, and in
 BERT.
+
+`dtype` is the JAX towers' compute dtype: the attention pool, the conv
+banks, the mapping MFC and BERT's matmuls run in it. The bi-GRUs take the
+dtype of their input, which is float32 in both towers (the frames, and
+the rows of the float32 word table), as in the JAX package, whose
+`BiGRU.dtype` is never read; so under bfloat16 the level concat is
+float32 and a mapped tower's output bfloat16.
 """
 
 from __future__ import annotations
@@ -51,19 +58,22 @@ class VisualEncoder(nn.Module):
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
-                 dropout: float = 0.2, attn_fusion: bool = False):
+                 dropout: float = 0.2, attn_fusion: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
-        self.atten = AttentionPool(feat_dim, feat_dim // 4, heads=3)
+        self.dtype = dtype
+        self.atten = AttentionPool(feat_dim, feat_dim // 4, heads=3,
+                                   dtype=dtype)
         self.rnn = BiGRU(feat_dim, rnn_size, packed=False)
-        self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.visual_mapping = (None if attn_fusion
-                               else MFC(mapping_in, mapping_out, dropout))
+        self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes, dtype)
+        self.visual_mapping = (None if attn_fusion else MFC(
+            mapping_in, mapping_out, dropout, dtype))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
     def forward(self, v: VisualBatch):
-        mask = v.mask.float()
+        mask = v.mask.to(self.dtype)
         bl = batch_max_len(mask)
         org_out = v.mean_origin
         attn_out = self.atten(v.frames, mask)
@@ -93,19 +103,21 @@ class TextGruEncoder(nn.Module):
                  kernel_num: int, kernel_sizes: Sequence[int],
                  mapping_in: int, mapping_out: int, concate: str = "full",
                  norm: bool = False, dropout: float = 0.2,
-                 attn_fusion: bool = False):
+                 attn_fusion: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.concate, self.norm = concate, norm
+        self.dtype = dtype
         self.embed = nn.Parameter(torch.empty(vocab_size, word_dim))
         self.rnn = BiGRU(word_dim, rnn_size, packed=True)
-        self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes)
-        self.text_mapping = (None if attn_fusion
-                             else MFC(mapping_in, mapping_out, dropout))
+        self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes, dtype)
+        self.text_mapping = (None if attn_fusion else MFC(
+            mapping_in, mapping_out, dropout, dtype))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):
-        mask = t.mask.float()
+        mask = t.mask.to(self.dtype)
         lengths = t.mask.sum(dim=1).to(torch.int64)
         bl = batch_max_len(mask)
         gru_seq = self.rnn(self.embed[t.tokens], lengths=lengths)
@@ -131,13 +143,15 @@ class TextTransformersEncoder(nn.Module):
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
-                 dropout: float = 0.2, attn_fusion: bool = False):
+                 dropout: float = 0.2, attn_fusion: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.bert = BertEncoder(bert)
-        self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes)
-        self.text_mapping = (None if attn_fusion
-                             else MFC(mapping_in, mapping_out, dropout))
+        self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes,
+                              dtype)
+        self.text_mapping = (None if attn_fusion else MFC(
+            mapping_in, mapping_out, dropout, dtype))
         self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):

@@ -4,7 +4,11 @@ Port of fancyrec_tpu/models/fancyrec.py: a brand-aspects tower beside a
 visual and a text tower joined by a fusion head. Submodule names follow
 the JAX parameter tree (brand_encoding, vid_encoding, text_encoding,
 fusion_encoding), so `fancyrec_tpu_torch.interop` carries JAX weights
-across by name. The port is float32 end to end. `model.eval()` is the JAX
+across by name. cfg.dtype "bfloat16" is the JAX package's bf16 towers:
+parameters stay float32; the visual and text towers, BERT and the fusion
+head compute in bfloat16 where the JAX modules do (see models.layers),
+the brand tower in float32; the post embedding comes out in bfloat16,
+the brand embedding in float32. `model.eval()` is the JAX
 package's deterministic=True; `model.train()` turns on the dropouts and
 the projection head's batch statistics, after `seed_dropout` has given
 the dropouts their generators.
@@ -34,12 +38,10 @@ class FancyRec(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.dtype not in ("", "float32"):
-            raise NotImplementedError(
-                "the port computes in float32 only, got dtype=%r" % cfg.dtype)
         if cfg.fusion_style not in ("fc", "ph", "attn"):
             raise ValueError("unknown fusion_style: %s" % cfg.fusion_style)
         self.cfg = cfg
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         attn_fusion = cfg.fusion_style == "attn"
         self.brand_encoding = BrandAspects(
             cfg.brand_num, cfg.brand_aspect, cfg.common_embedding_size)
@@ -51,7 +53,7 @@ class FancyRec(nn.Module):
                 mapping_in=cfg.visual_mapping_in,
                 mapping_out=cfg.visual_mapping_size, concate=cfg.concate,
                 level=cfg.level_vis, norm=cfg.visual_norm,
-                dropout=cfg.dropout, attn_fusion=attn_fusion)
+                dropout=cfg.dropout, attn_fusion=attn_fusion, dtype=dtype)
         if not cfg.single_modal_visual:
             if cfg.text_net == "bi-gru":
                 self.text_encoding = TextGruEncoder(
@@ -62,7 +64,7 @@ class FancyRec(nn.Module):
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
                     norm=cfg.text_norm, dropout=cfg.dropout,
-                    attn_fusion=attn_fusion)
+                    attn_fusion=attn_fusion, dtype=dtype)
             elif cfg.text_net == "transformers":
                 self.text_encoding = TextTransformersEncoder(
                     bert=BertConfig(
@@ -74,28 +76,31 @@ class FancyRec(nn.Module):
                         max_position_embeddings=cfg.bert_max_position,
                         type_vocab_size=cfg.bert_type_vocab,
                         hidden_dropout_prob=cfg.bert_dropout,
-                        attention_probs_dropout_prob=cfg.bert_dropout),
+                        attention_probs_dropout_prob=cfg.bert_dropout,
+                        remat=bool(cfg.bert_remat),
+                        compute_dtype=cfg.dtype or "float32"),
                     kernel_num=cfg.text_kernel_num,
                     kernel_sizes=cfg.text_kernel_sizes_list,
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
                     level=cfg.level_txt, norm=cfg.text_norm,
-                    dropout=cfg.dropout, attn_fusion=attn_fusion)
+                    dropout=cfg.dropout, attn_fusion=attn_fusion,
+                    dtype=dtype)
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
             fused_in = cfg.visual_mapping_size + cfg.text_mapping_size
             if cfg.fusion_style == "fc":
                 self.fusion_encoding = FusionFC(
-                    fused_in, cfg.common_embedding_size)
+                    fused_in, cfg.common_embedding_size, dtype)
             elif attn_fusion:
                 self.fusion_encoding = FusionAttnReduction(
                     cfg.visual_mapping_in, cfg.text_mapping_in,
-                    cfg.common_embedding_size)
+                    cfg.common_embedding_size, dtype)
             else:
                 self.fusion_encoding = FusionProjectionHead(
                     fused_in, cfg.common_embedding_size,
-                    prj_head_output=cfg.prj_head_output)
+                    prj_head_output=cfg.prj_head_output, dtype=dtype)
 
     def seed_dropout(self, seed: int) -> "FancyRec":
         """Seed the training-mode randomness: every tower dropout draws from

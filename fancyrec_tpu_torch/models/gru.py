@@ -10,7 +10,10 @@ torch.nn.GRU:
 
 The input projection of all steps is one batched matmul outside the
 recurrence; the recurrence itself is `ops.gru_scan` (the CUDA kernel on
-the card, its plain version on the CPU). Parameters are stored in torch's
+the card, its plain version on the CPU). Both compute in the input's
+dtype, as the JAX module does: bfloat16 input gives a bfloat16 projection
+and a bfloat16 recurrence (its gates in float32, h stored in bfloat16);
+the towers hand it float32 under any compute dtype. Parameters are stored in torch's
 GRU layout (w_ih (3H, D), w_hh (3H, H), b_ih, b_hh (3H,)) under the JAX
 package's names.
 """

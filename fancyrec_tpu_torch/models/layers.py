@@ -8,6 +8,14 @@ batch-max length (`batch_len`, a 0-d tensor) to bound the valid region.
 Parameter names and shapes follow the JAX parameter tree with torch
 layouts (Linear weights (out, in), Conv1d weights (K, D, ws)), so
 `fancyrec_tpu_torch.interop` maps one onto the other by name.
+
+`dtype` is flax's `dtype=`, the compute dtype: parameters stay float32 in
+storage; a Dense or Conv casts its input, weight and bias to `dtype`,
+forms the product in it and adds the bias in it, so its output is in
+`dtype`. Everything else takes the dtype its inputs give it, under the
+same promotion rules as jax.numpy (bfloat16 with float32 is float32).
+These are explicit casts where the JAX modules have them, not
+`torch.autocast`, whose per-op lists are not flax's.
 """
 
 from __future__ import annotations
@@ -60,16 +68,29 @@ class Dropout(nn.Module):
         return x * mask / keep
 
 
+def dense(linear: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) with `linear`'s parameters: x, the weight
+    and the bias cast to `dtype`, the product rounded to `dtype`, then the
+    bias added in it. In float32 it is `linear(x)`."""
+    if dtype == torch.float32 and x.dtype == torch.float32:
+        return linear(x)
+    y = F.linear(x.to(dtype), linear.weight.to(dtype))
+    return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
 class MFC(nn.Module):
     """Linear -> ReLU -> Dropout common-space mapping."""
 
-    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.2):
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(in_dim, out_dim)
         self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.drop(F.relu(self.fc1(x)))
+        return self.drop(F.relu(dense(self.fc1, x, self.dtype)))
 
 
 class AttentionPool(nn.Module):
@@ -77,13 +98,18 @@ class AttentionPool(nn.Module):
     W2 tanh(W1 x); softmax over valid frames only; output = sum of
     weight * x divided by the batch-max length (kept from the reference)."""
 
-    def __init__(self, feat_dim: int, hidden: int, heads: int = 3):
+    def __init__(self, feat_dim: int, hidden: int, heads: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.w_1 = nn.Linear(feat_dim, hidden, bias=False)
         self.w_2 = nn.Linear(hidden, heads, bias=False)
 
     def forward(self, x, mask):
-        score = self.w_2(torch.tanh(self.w_1(x))).mean(dim=-1)   # (B, T)
+        # the scores and weights in the compute dtype; weight * x promotes
+        # to x's dtype
+        a = torch.tanh(dense(self.w_1, x, self.dtype))
+        score = dense(self.w_2, a, self.dtype).mean(dim=-1)    # (B, T)
         valid = mask > 0
         score = torch.where(valid, score,
                             torch.full_like(score, torch.finfo(score.dtype).min))
@@ -101,19 +127,29 @@ class ConvBank(nn.Module):
     (T_batch the dynamic batch-max input length)."""
 
     def __init__(self, in_dim: int, kernel_num: int,
-                 kernel_sizes: Sequence[int]):
+                 kernel_sizes: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel_sizes = tuple(kernel_sizes)
         for ws in self.kernel_sizes:
             setattr(self, "conv_w%d" % ws,
                     nn.Conv1d(in_dim, kernel_num, ws, padding=ws - 1))
+
+    def _conv(self, conv: nn.Conv1d, xt):
+        """flax nn.Conv(dtype=...): the product, then the bias, in dtype."""
+        if self.dtype == torch.float32 and xt.dtype == torch.float32:
+            return conv(xt)
+        y = F.conv1d(xt.to(self.dtype), conv.weight.to(self.dtype),
+                     padding=conv.padding)
+        return y + conv.bias.to(self.dtype)[None, :, None]
 
     def forward(self, x, batch_len):
         xt = x.transpose(1, 2)                          # (B, D, T)
         t = x.shape[1]
         outs = []
         for ws in self.kernel_sizes:
-            y = F.relu(getattr(self, "conv_w%d" % ws)(xt))    # (B, K, T+ws-1)
+            y = F.relu(self._conv(getattr(self, "conv_w%d" % ws), xt))
             pos = torch.arange(t + ws - 1, device=x.device)
             valid = (pos < batch_len + ws - 1)[None, None, :]
             y = torch.where(valid, y, torch.full_like(y, torch.finfo(y.dtype).min))
@@ -126,7 +162,10 @@ class BatchNorm1dTorch(nn.Module):
     as the JAX package writes it. Evaluation mode normalizes with the
     running statistics (the JAX package's 'batch_stats' collection);
     training mode with the batch's mean and biased variance, and moves the
-    running statistics toward the mean and the unbiased variance."""
+    running statistics toward the mean and the unbiased variance.
+    A bfloat16 x keeps the batch statistics and the normalized values in
+    bfloat16; the float32 scale and bias (and running statistics) promote
+    the output to float32, as in the JAX module."""
 
     def __init__(self, features: int):
         super().__init__()

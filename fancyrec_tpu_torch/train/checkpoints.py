@@ -8,12 +8,18 @@ best_rsum, Eiters, no_impr, lr_counter, pending_lr_scale). The file names
 and the save policy are the JAX package's (fancyrec_tpu/train/
 checkpoints.py): checkpoint_epoch_<e>.pth.tar and model_best.pth.tar.
 
-`load_any` also reads the reference's own torch checkpoints (a list-form
-state dict beside the pickled argparse options), converted through
-`models.torch_import` and `interop`, so a GPU-trained reference model
-evaluates in the port. Reading the JAX package's FRTPU1 checkpoints
-(msgpack) is not ported: `load_any` refuses them; carry JAX weights
-across with `fancyrec_tpu_torch.interop` instead.
+`load_any` also reads the two other formats a FancyRec model comes in:
+  * the JAX package's FRTPU1 files (a magic line, then four
+    length-prefixed blobs: config JSON, meta JSON, the msgpack of the flax
+    `{params, batch_stats}` and the msgpack of the optax state), decoded
+    by `io.msgpack` and carried across by `interop`; the optax Adam or
+    RMSprop moments come back keyed by the port's parameter names
+    (`optax_moments`), for `train.state.load_optimizer_state`;
+  * the reference's own torch checkpoints (a list-form state dict beside
+    the pickled argparse options), converted through
+    `models.torch_import` and `interop`.
+So a model trained by the JAX package or the reference evaluates, serves
+and resumes training in the port.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import os
 import pickle
 import re
 import shutil
+import struct
 from typing import Any, Dict, Optional
 
 import torch
@@ -88,21 +95,104 @@ def _config_from_reference_opt(opt) -> Config:
                      if not k.startswith("_")}).finalize()
 
 
+def _find(tree, *keys):
+    """The first map in `tree` (depth first) that holds every key."""
+    if not isinstance(tree, dict):
+        return None
+    if all(k in tree for k in keys):
+        return tree
+    for v in tree.values():
+        hit = _find(v, *keys)
+        if hit is not None:
+            return hit
+    return None
+
+
+def optax_moments(opt_tree) -> Dict[str, Any]:
+    """The msgpack-restored optax state of the JAX package's optimizer
+    (`chain([clip_by_global_norm,] inject_hyperparams(adam | rmsprop))`)
+    -> {"optimizer": "adam" | "rmsprop", "step": the update count, "lr":
+    the injected learning rate, "state": {port parameter name: {"exp_avg",
+    "exp_avg_sq"} (Adam's mu, nu) or {"square_avg"} (RMSprop's nu)}},
+    each moment in its parameter's torch layout."""
+    from fancyrec_tpu_torch.interop import torch_params_from_jax
+
+    inject = _find(opt_tree, "hyperparams", "inner_state")
+    if inject is None:
+        raise ValueError("no inject_hyperparams state in the optax tree")
+    lr = float(inject["hyperparams"]["learning_rate"])
+    adam = _find(inject["inner_state"], "mu", "nu")
+    if adam is not None:
+        mu, nu = (torch_params_from_jax(adam[k]) for k in ("mu", "nu"))
+        return {"optimizer": "adam", "step": int(adam["count"]), "lr": lr,
+                "state": {k: {"exp_avg": mu[k], "exp_avg_sq": nu[k]}
+                          for k in mu}}
+    rms = _find(inject["inner_state"], "nu")
+    if rms is None:
+        raise ValueError("neither Adam nor RMSprop moments in the optax tree")
+    nu = torch_params_from_jax(rms["nu"])
+    return {"optimizer": "rmsprop", "step": int(inject["count"]), "lr": lr,
+            "state": {k: {"square_avg": v} for k, v in nu.items()}}
+
+
+def _read_blobs(path: str):
+    blobs = []
+    with open(path, "rb") as f:
+        if f.read(len(_JAX_MAGIC)) != _JAX_MAGIC:
+            raise ValueError("not an FRTPU1 checkpoint: %s" % path)
+        while True:
+            size = f.read(8)
+            if not size:
+                break
+            if len(size) < 8:
+                raise ValueError("FRTPU1 checkpoint %s: truncated length"
+                                 % path)
+            (n,) = struct.unpack("<Q", size)
+            blob = f.read(n)
+            if len(blob) != n:
+                raise ValueError("FRTPU1 checkpoint %s: blob %d truncated "
+                                 "(%d of %d bytes)"
+                                 % (path, len(blobs), len(blob), n))
+            blobs.append(blob)
+    if len(blobs) < 3:
+        raise ValueError("FRTPU1 checkpoint %s: %d blobs, want config, meta "
+                         "and model" % (path, len(blobs)))
+    return blobs
+
+
+def load_frtpu1(path: str) -> Dict[str, Any]:
+    """The JAX package's checkpoint -> {"config", "state_dict", **meta},
+    and "optimizer" (the `optax_moments` of its optax state) where the
+    file holds one (meta `has_opt_state`)."""
+    from fancyrec_tpu_torch.interop import torch_state_from_jax
+    from fancyrec_tpu_torch.io.msgpack import msgpack_restore
+
+    blobs = _read_blobs(path)
+    meta = json.loads(blobs[1].decode())
+    variables = msgpack_restore(blobs[2])
+    out = {"config": Config.from_json(blobs[0].decode()),
+           "state_dict": torch_state_from_jax(
+               variables["params"], variables.get("batch_stats") or {}),
+           **meta}
+    if meta.get("has_opt_state") and len(blobs) > 3 and blobs[3]:
+        out["optimizer"] = optax_moments(msgpack_restore(blobs[3]))
+    return out
+
+
 def load_any(path: str) -> Dict[str, Any]:
-    """The port's checkpoint or a reference torch checkpoint
-    (auto-detected) -> {"config", "state_dict", **meta}. A reference
-    checkpoint's config comes from its pickled options, with the BERT
-    dimensions read off its weights."""
+    """The port's checkpoint, the JAX package's FRTPU1 or a reference
+    torch checkpoint (auto-detected) -> {"config", "state_dict", **meta},
+    and "optimizer" where the file carries the optimizer's state (a torch
+    state_dict from the port's files, `optax_moments` from FRTPU1). A
+    reference checkpoint's config comes from its pickled options, with the
+    BERT dimensions read off its weights."""
     from fancyrec_tpu_torch.interop import torch_state_from_jax
     from fancyrec_tpu_torch.models.torch_import import (
         fancyrec_variables_from_reference)
 
     with open(path, "rb") as f:
         if f.read(len(_JAX_MAGIC)) == _JAX_MAGIC:
-            raise ValueError(
-                "%s is a JAX-package checkpoint (FRTPU1, msgpack), which the "
-                "port does not read: carry its weights across with "
-                "fancyrec_tpu_torch.interop.load_jax_variables" % path)
+            return load_frtpu1(path)
     try:
         blob = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:      # objects beyond tensors and numbers

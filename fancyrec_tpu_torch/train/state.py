@@ -57,6 +57,40 @@ def clip_grad_norm(grads: List[torch.Tensor], max_norm: float
     return norm
 
 
+def load_optimizer_state(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                         saved: dict) -> None:
+    """Restore a checkpoint's optimizer state into `opt`, built by
+    `make_optimizer` over `model.parameters()`: a torch state_dict (the
+    port's checkpoints) as it is; the name-keyed moments of an FRTPU1 file
+    (`checkpoints.optax_moments`) in the model's parameter order, with
+    optax's update count as every parameter's step and its injected lr
+    as every group's."""
+    if "param_groups" in saved:
+        opt.load_state_dict(saved)
+        return
+    kind = {torch.optim.Adam: "adam", torch.optim.RMSprop: "rmsprop"}.get(
+        type(opt))
+    if saved["optimizer"] != kind:
+        raise ValueError("the checkpoint holds %s moments, the optimizer is "
+                         "%s" % (saved["optimizer"], type(opt).__name__))
+    names = [n for n, _ in model.named_parameters()]
+    own = opt.state_dict()
+    if [len(g["params"]) for g in own["param_groups"]] != [len(names)]:
+        raise ValueError("the optimizer is not one group over the model's "
+                         "parameters")
+    if set(saved["state"]) != set(names):
+        raise ValueError(
+            "the checkpoint's moments do not match the model: missing %s, "
+            "unexpected %s" % (sorted(set(names) - set(saved["state"])),
+                               sorted(set(saved["state"]) - set(names))))
+    step = torch.tensor(float(saved["step"]))
+    opt.load_state_dict({
+        "state": {i: {"step": step.clone(), **saved["state"][n]}
+                  for i, n in enumerate(names)},
+        "param_groups": [dict(g, lr=saved["lr"])
+                         for g in own["param_groups"]]})
+
+
 def current_lr(opt: torch.optim.Optimizer) -> float:
     return float(opt.param_groups[0]["lr"])
 

@@ -24,7 +24,11 @@ from fancyrec_tpu_torch.train.state import (
 
 
 def micro_loss(model, cfg: Config, queue, mb: Dict[str, torch.Tensor]):
-    """One microbatch's forward and loss -> (loss, next queue state)."""
+    """One microbatch's forward and loss -> (loss, next queue state).
+    Arrays staged in bfloat16 (--transfer_dtype) are upcast to float32 on
+    the device first."""
+    mb = {k: v.float() if v.dtype == torch.bfloat16 else v
+          for k, v in mb.items()}
     v = VisualBatch(frames=mb["frames"], mean_origin=mb["origin"],
                     mask=mb["vmask"])
     t = TextBatch(bows=mb["bows"], tokens=mb["tokens"].long(),

@@ -4,15 +4,19 @@
         insCartest --rootpath ROOT [the flags of bin/instance.sh] \\
         [--device cpu]
 
-Port of fancyrec_tpu/train/trainer.py on one device (no meshes, hosts or
-profiler). The same flags, on-disk layout, checkpoint policy, lr schedule
+Port of fancyrec_tpu/train/trainer.py on one device (no meshes or hosts).
+The same flags, on-disk layout, checkpoint policy, lr schedule
 (x lr_decay_rate each epoch, a further x0.5 after 2 stale epochs), early
 stop after 10 stale epochs, a fresh contrastive queue each epoch, and
 model selection on --validate_split (default the test split, the
 reference's choice). With --w2v_feature the bi-GRU text tower's word
 embeddings start from a word2vec store. Each epoch prints its updates and
 posts/s and appends its metrics to <rootpath>/model/<postfix>/
-metrics.jsonl and a TensorBoard event file beside it.
+metrics.jsonl and a TensorBoard event file beside it. The JAX package's
+throughput mode runs too: --dtype bfloat16 (the towers in bfloat16),
+--transfer_dtype bfloat16 (float batch arrays staged in bfloat16 on the
+host, upcast on the device), --bert_remat 1 and --profile_dir DIR (a
+torch.profiler trace of epoch min(1, num_epochs - 1)).
 """
 
 from __future__ import annotations
@@ -42,8 +46,9 @@ from fancyrec_tpu_torch.io.word2vec import get_we_parameter
 from fancyrec_tpu_torch.losses import init_queue_state
 from fancyrec_tpu_torch.train import checkpoints
 from fancyrec_tpu_torch.train.state import (
-    TrainState, current_lr, init_state, scale_lr)
+    TrainState, current_lr, init_state, load_optimizer_state, scale_lr)
 from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
+from fancyrec_tpu_torch.utils import profiling
 from fancyrec_tpu_torch.utils.tb_events import TBEventWriter
 
 _TRAIN_KEYS = ("brand_ids",) + _MODEL_KEYS
@@ -138,10 +143,12 @@ def validate(model, loader, cfg: Config, device: torch.device):
 
 
 def _superbatches(loader, accumulation_step: int, token_buckets=None,
-                  frame_buckets=None):
+                  frame_buckets=None, transfer_dtype: str = ""):
     """Group loader batches into super-batches of A microbatches. The
     trailing partial group is skipped: the reference steps the optimizer
-    on full accumulation groups only."""
+    on full accumulation groups only. transfer_dtype 'bfloat16' rounds the
+    float32 arrays to bfloat16 tensors on the host (round to nearest even),
+    halving the bytes of the copy to the device; the step upcasts them."""
     group = []
     for batch in loader:
         group.append(batch)
@@ -150,6 +157,11 @@ def _superbatches(loader, accumulation_step: int, token_buckets=None,
             if token_buckets or frame_buckets:
                 # the whole super-batch shares one bucket shape
                 sb = bucket_batch(sb, token_buckets, frame_buckets)
+            if transfer_dtype:
+                dt = getattr(torch, transfer_dtype)
+                sb = {k: (torch.from_numpy(v).to(dt)
+                          if v.dtype == np.float32 else v)
+                      for k, v in sb.items()}
             yield sb
             group = []
 
@@ -166,7 +178,7 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
     t0 = time.time()
     stream = prefetch_to_device(
         _superbatches(loader, cfg.accumulation_step, cfg.token_buckets_list,
-                      cfg.frame_buckets_list),
+                      cfg.frame_buckets_list, cfg.transfer_dtype),
         device, _TRAIN_KEYS, size=2)
     for _, superbatch in stream:
         state, metrics = train_step(model, opt, cfg, state, superbatch)
@@ -258,12 +270,12 @@ def _run(cfg: Config, device: torch.device):
     if cfg.resume:
         if os.path.isfile(cfg.resume):
             print("=> loading checkpoint '%s'" % cfg.resume)
-            # the port's own checkpoint or a reference torch one; only the
-            # port's carries the optimizer state
+            # the port's own checkpoint, the JAX package's FRTPU1 or a
+            # reference torch one; the first two carry the optimizer state
             ckpt = checkpoints.load_any(cfg.resume)
             model.load_state_dict(ckpt["state_dict"])
             if "optimizer" in ckpt:
-                opt.load_state_dict(ckpt["optimizer"])
+                load_optimizer_state(opt, model, ckpt["optimizer"])
                 print("=> optimizer state restored (exact Adam trajectory)")
             eiters = ckpt.get("Eiters", 0)
             if cfg.auto_resume:
@@ -287,8 +299,11 @@ def _run(cfg: Config, device: torch.device):
         state = TrainState(queue=init_queue_state(
             cfg.queue_size, cfg.common_embedding_size, device=device),
             step=state.step)
-        state, stats = train_epoch(model, opt, cfg, state, loaders["train"],
-                                   epoch, device)
+        # profile epoch 1 (epoch 0 carries the first calls' set-up)
+        profiled = cfg.profile_dir and epoch == min(1, cfg.num_epochs - 1)
+        with profiling.trace(cfg.profile_dir if profiled else "", device):
+            state, stats = train_epoch(model, opt, cfg, state,
+                                       loaders["train"], epoch, device)
         print("=" * 58)
         print("=" * 23 + "Test Phase" + "=" * 25)
         print("=" * 58)

@@ -34,6 +34,7 @@ from fancyrec_tpu_torch.data.loader import BatchLoader
 from fancyrec_tpu_torch.data.tokenizer import WordPieceTokenizer
 from fancyrec_tpu_torch.eval import evaluator as teval
 from fancyrec_tpu_torch.eval import scorers as tscorers
+from fancyrec_tpu_torch.interop import torch_state_from_jax
 from fancyrec_tpu_torch.io.bigfile import BigFileWriter, ImageBigFile
 from fancyrec_tpu_torch.io.dictfile import read_dict
 from fancyrec_tpu_torch.io.vocab import Bow2Vec, load_vocab
@@ -306,12 +307,22 @@ def test_reference_checkpoint_loads_like_jax(tmp_path, fusion_style):
 
 
 def test_load_any_refuses_a_jax_checkpoint(tmp_path):
+    """The JAX package's checkpoints are read now (the state dict equals
+    interop's); what `load_any` refuses is a file that only starts like
+    one: the FRTPU1 magic line without its blobs."""
     kw = tiny_cfg_kwargs()
     jcfg, _, params, stats = jax_variables(kw)
     path = str(tmp_path / "model_best.pth.tar")
     jckpt.save_checkpoint(path, jcfg, params, stats, 1, 0.0, 0)
+    got = checkpoints.load_any(path)
+    want = torch_state_from_jax(params, stats)
+    assert set(got["state_dict"]) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got["state_dict"][k], v), k
+    stub = tmp_path / "stub.pth.tar"
+    stub.write_bytes(b"FRTPU1\n")
     with pytest.raises(ValueError, match="FRTPU1"):
-        checkpoints.load_any(path)
+        checkpoints.load_any(str(stub))
 
 
 def test_load_any_reads_the_ports_own_checkpoint(tmp_path):

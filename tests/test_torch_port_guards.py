@@ -8,7 +8,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fancyrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "ml_dtypes", "fancyrec_tpu")
 
 
 def _port_sources():
@@ -45,6 +46,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "fancyrec_tpu_torch/eval/scorers.py",
             "fancyrec_tpu_torch/data/modality.py",
             "fancyrec_tpu_torch/io/word2vec.py",
+            "fancyrec_tpu_torch/io/msgpack.py",
+            "fancyrec_tpu_torch/utils/profiling.py",
             "fancyrec_tpu_torch/models/torch_import.py",
             "fancyrec_tpu_torch/utils/tb_events.py"} <= scanned
     bad = ["%s:%d imports %s" % (f.relative_to(ROOT), line, mod)

@@ -113,7 +113,6 @@ def test_auto_resume_restores_the_optimizer_moments(root, monkeypatch):
 def test_not_ported_flags_are_refused(root):
     for flag in (["--mesh_shape", "2,1"], ["--pp_stages", "2"],
                  ["--seq_shard"], ["--rng_impl", "rbg"],
-                 ["--compilation_cache_dir", "/nonexistent"],
-                 ["--transfer_dtype", "bfloat16"]):
+                 ["--compilation_cache_dir", "/nonexistent"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             trainer.main(TINY + ["--rootpath", root] + flag)
