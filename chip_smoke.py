@@ -35,6 +35,22 @@ Phases:
      int8 over HTTP and ask /v1/topk for all 51 brands. The served posts
      must equal the plain top-k, and a batch encoded on the card must
      match the same batch encoded on the CPU;
+  4b. IVF over that index: `serving.index ivf-build --quantize int8` (its
+     stages timed), then /v1/topk for single brands at nprobe 8 (the
+     service's default), 64 and nlist over HTTP: every answer must equal a
+     plain scan of the same probed lists; the sidecar must hold each post
+     once, its rows the index's int8 rows but for rounding, and at
+     nprobe = nlist the answers must equal the served exact path's; every
+     single-brand exact query (K3 at B=1) must equal the plain top-k; an
+     append through /v1/add must make the next IVF query refuse as stale;
+  4c. IVF recall@10 and single-query time on a clustered 1M x 1024 corpus
+     made on the card (1,024 topics, noise 0.5; nlist 2048), against the
+     exact int8 top-k;
+  4d. phase 4's checkpoint exported by `serving.export` on the card and on
+     the CPU, both run on the card without the model code: encode_post
+     equals the index rows and the CPU model (B=128, 1, 2) with one GRU
+     kernel launch a call, embed_brand the index's brand embeddings; then
+     served with --artifact: /v1/encode and /v1/recommend;
   5. training, at the same width: one train step of 2 microbatches on the
      card against the same step on the CPU; one update of 8 microbatches
      timed and profiled (device time by kernel group); then the trainer
@@ -54,9 +70,9 @@ Phases:
      checkpoint as in 6;
   8. a checkpoint the JAX package wrote (tests/data/frtpu1_tiny.pth.tar)
      read by `load_any` onto the card: its encode equals the CPU's.
-The kernels' launch counts are zeroed just before each of the five paths
-(4, 5c, 6, 7's trainer and 7's tester) and read just after: each kernel
-must have run on its path.
+The kernels' launch counts are zeroed just before each of the seven paths
+(4, 4b, 4d, 5c, 6, 7's trainer and 7's tester) and read just after: each
+kernel must have run on its path (K1-fwd on 4 and 4d, K3 on 4 and 4b).
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
@@ -1496,7 +1512,7 @@ def main_path(work, dev):
     from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda
     from fancyrec_tpu_torch.ops.similarity import topk_int8_ref
     from fancyrec_tpu_torch.serving import index as sindex
-    from fancyrec_tpu_torch.serving.server import FancyRecService, make_server
+    from fancyrec_tpu_torch.serving.server import FancyRecService
     from fancyrec_tpu_torch.train.checkpoints import (
         load_checkpoint, save_checkpoint)
     from fancyrec_tpu_torch.utils.fixture import make_fixture
@@ -1581,9 +1597,7 @@ def main_path(work, dev):
 
     t0 = time.time()
     service = FancyRecService(idx, quantize="int8", device=str(dev))
-    server = make_server(service, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    server, thread = serve(service)
     log("int8 service up: %.1f s" % (time.time() - t0))
     try:
         body = {"brand_ids": list(range(N_BRANDS)), "k": TOPK}
@@ -1595,11 +1609,7 @@ def main_path(work, dev):
         health = http(server.server_port, "GET", "/healthz")
         metrics = http(server.server_port, "GET", "/metrics")
     finally:
-        server.shutdown()
-        thread.join(timeout=30)
-        server.server_close()
-    if thread.is_alive():
-        fail("the HTTP server thread did not stop")
+        stop(server, thread)
     if (health["n_posts"] != N_POSTS
             or metrics["routes"]["/v1/topk"]["count"] != N_REQUESTS):
         fail("unexpected /healthz or /metrics: %s %s" % (health, metrics))
@@ -1632,6 +1642,460 @@ def main_path(work, dev):
             np.testing.assert_allclose([p["score"] for p in res["posts"]],
                                        vp[b], rtol=0, atol=K3_TOL)
     log("served posts equal the plain top-k for all %d brands" % N_BRANDS)
+    return {"idx": idx, "ckpt": ckpt, "first": first, "cpu_model": cpu_model,
+            "rows": rows, "fwd_ms": fwd_ms}
+
+
+def http_status(port, method, path, body=None):
+    """(status, JSON reply) of one request, whatever the status."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, path, body=json.dumps(body) if body else None,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data
+
+
+def serve(service):
+    """Start `service` on an ephemeral port -> (server, thread)."""
+    from fancyrec_tpu_torch.serving.server import make_server
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def stop(server, thread):
+    server.shutdown()
+    thread.join(timeout=30)
+    server.server_close()
+    if thread.is_alive():
+        fail("the HTTP server thread did not stop")
+
+
+def cli_json(main_fn, argv):
+    """Run a CLI's main in this process -> the JSON of its last line."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def quantize_query(q):
+    """The IVF query's int8 form, written apart from serving/ivf.py: max-abs
+    scaling by one division, round half to even, clip; 1/||q8|| from the
+    exact sum of squares, floored at 1 as the JAX package does."""
+    import torch
+    amax = q.abs().max()
+    scale = torch.where(amax > 0, torch.full_like(amax, 127.0) / amax,
+                        torch.zeros_like(amax))
+    q8 = torch.clamp(torch.round(q * scale), -127, 127).to(torch.int32)
+    inv_q = torch.rsqrt(torch.clamp((q8 * q8).sum().float(), min=1.0))
+    return q8, inv_q
+
+
+def plain_ivf_scan(ivf, q, nprobe, k):
+    """The top-k of one query over the lists it probes, computed apart from
+    the IVF query: the centroids ranked by a stable sort, the probed rows'
+    int32 dots summed in int32, a stable sort of the scores -> (ids, vals)
+    as numpy."""
+    import torch
+    qn = q / torch.clamp(q.norm(), min=1e-12)
+    order = torch.sort(ivf.centroids @ qn, descending=True,
+                       stable=True).indices[:nprobe]
+    lists = torch.cat([order, torch.arange(
+        ivf.nlist, ivf.nlist + ivf.overflow_lists, device=q.device)])
+    q8, inv_q = quantize_query(q)
+    scores = []
+    for lo in range(0, lists.shape[0], 256):
+        part = lists[lo:lo + 256]
+        blk = ivf.packed[part].reshape(-1, ivf.packed.shape[-1]).to(
+            torch.int32)
+        acc = (blk * q8).sum(dim=1, dtype=torch.int32)
+        scores.append(acc.float() * inv_q * ivf.inv_norms[part].reshape(-1))
+    s = torch.cat(scores)
+    ids = ivf.packed_idx[lists].reshape(-1)
+    s = torch.where(ids < 0, torch.full_like(s, float("-inf")), s)
+    vals, pos = torch.sort(s, descending=True, stable=True)
+    return ids[pos[:k]].cpu().numpy(), vals[:k].cpu().numpy()
+
+
+def differs_but_for_rounding(got, want, moved, tol):
+    """Why two top-k answers {post: score} over the same posts differ, or
+    None. A post in both must score the same within `tol`, unless its int8
+    row was rounded apart between the two (`moved`). A post in one answer
+    only must tie within `tol` at the other's cut, or have been pushed out
+    by a moved post of the other answer."""
+    for p in got.keys() & want.keys():
+        if p not in moved and abs(got[p] - want[p]) > tol:
+            return "post %d scores %r and %r" % (p, got[p], want[p])
+    for a, b in ((got, want), (want, got)):
+        cut = min(b.values())
+        only = [p for p in a.keys() - b.keys() if p not in moved]
+        above = [p for p in only if a[p] > cut + tol]
+        if above:
+            return "post %d (%r) beats the other's cut %r" % (
+                above[0], a[above[0]], cut)
+        below = sum(a[p] < cut - tol for p in only)
+        if below > sum(p in moved for p in b.keys() - a.keys()):
+            return "%d posts missing from the other answer" % below
+    return None
+
+
+def ivf_path(idx, dev):
+    """Phase 4b: the IVF sidecar of phase 4's 1M-post index, built through
+    the `ivf-build` CLI and served over HTTP (int8, default nprobe 8)."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import topk_int8_ref
+    from fancyrec_tpu_torch.serving import index as sindex
+    from fancyrec_tpu_torch.serving.server import FancyRecService
+
+    t0 = time.time()
+    info = cli_json(sindex.main, ["ivf-build", idx, "--quantize", "int8",
+                                  "--device", str(dev)])
+    build_s = time.time() - t0
+    side = os.path.join(idx, "ivf")
+    side_bytes = sum(os.path.getsize(os.path.join(side, f))
+                     for f in os.listdir(side))
+    log("ivf-build over %d posts: %.2f s; nlist %d, cap %d, overflow lists "
+        "%d, spill fraction %.6f, sidecar %d bytes; stages (s): %s"
+        % (info["posts"], build_s, info["nlist"], info["cap"],
+           info["overflow_lists"], info["spill_frac"], side_bytes,
+           json.dumps({k: round(v, 3) for k, v in info["seconds"].items()})))
+    if info["posts"] != N_POSTS:
+        fail("ivf-build indexed %d posts, not %d" % (info["posts"], N_POSTS))
+
+    t0 = time.time()
+    service = FancyRecService(idx, quantize="int8", default_nprobe=8,
+                              device=str(dev))
+    ivf = service.index.ivf()
+    log("int8 service with the sidecar up: %.1f s" % (time.time() - t0))
+    nlist = ivf.nlist
+    brand_embs = torch.from_numpy(service.index.brand_embs).to(dev)
+    server, thread = serve(service)
+    served = {}
+    try:
+        port = server.server_port
+        for npb in (8, 64, nlist):
+            lat, replies = [], []
+            for i in range(N_REQUESTS):
+                body = {"brand_ids": [i % N_BRANDS], "k": TOPK}
+                if npb != 8:                   # 8: the service's default
+                    body["nprobe"] = npb
+                t0 = time.perf_counter()
+                replies.append(http(port, "POST", "/v1/topk", body))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            steady = np.array(lat[1:])
+            log("/v1/topk, 1 brand x k=%d, IVF nprobe %d of %d lists: first "
+                "%.2f ms; next %d: p50 %.3f ms, p90 %.3f ms"
+                % (TOPK, npb, nlist, lat[0], len(steady),
+                   float(np.percentile(steady, 50)),
+                   float(np.percentile(steady, 90))))
+            served[npb] = replies
+        # each answer against a plain scan of the same probed lists
+        for npb, replies in served.items():
+            for i, reply in enumerate(replies):
+                b = i % N_BRANDS
+                ids, vals = plain_ivf_scan(ivf, brand_embs[b], npb, TOPK)
+                res = reply["results"][0]["posts"]
+                if ([p["cap_id"] for p in res]
+                        != [service.index.cap_ids[j] for j in ids]):
+                    fail("IVF answer for brand %d at nprobe %d differs from "
+                         "the plain scan of its lists" % (b, npb))
+                np.testing.assert_allclose([p["score"] for p in res], vals,
+                                           rtol=0, atol=K3_TOL)
+        log("every IVF answer (%d) equals the plain scan of its probed lists"
+            % sum(len(r) for r in served.values()))
+
+        # the sidecar holds every post once, each row the index's int8 row
+        # but for rounding: the sidecar quantizes a row after its unit norm,
+        # the index before it, which moves an element by one now and then
+        index = service.index
+        posts = index.posts()
+        slots = ivf.packed_idx.reshape(-1)
+        valid = slots >= 0
+        post_of = slots[valid].long()
+        if (post_of.numel() != N_POSTS or not torch.equal(
+                torch.sort(post_of).values, torch.arange(N_POSTS, device=dev))):
+            fail("the sidecar's %d filled slots are not a permutation of the "
+                 "%d posts" % (post_of.numel(), N_POSTS))
+        unpacked = torch.empty_like(posts)
+        unpacked[post_of] = ivf.packed.reshape(-1, DIM)[valid]
+        moved, worst = [], 0
+        for lo in range(0, N_POSTS, 1 << 16):
+            d = (unpacked[lo:lo + (1 << 16)].short()
+                 - posts[lo:lo + (1 << 16)].short()).abs().amax(dim=1)
+            worst = max(worst, int(d.max()))
+            moved.append(torch.nonzero(d).reshape(-1) + lo)
+        moved = set(torch.cat(moved).tolist())
+        del unpacked, post_of, valid
+        if worst > 1:
+            fail("a sidecar row differs from the index's int8 row by %d in an "
+                 "element (rounding moves it by 1 at most)" % worst)
+        log("the sidecar holds each of the %d posts once; %d rows differ "
+            "from the index's int8 rows, each element by 1 at most"
+            % (N_POSTS, len(moved)))
+
+        # at nprobe = nlist: the served exact path's answer (K3 over the
+        # index), up to posts tied at the cut and rows rounded apart
+        pos = {name: i for i, name in enumerate(index.cap_ids)}
+        ev, en = uncounted(lambda: index.query(list(range(N_BRANDS)),
+                                               k=TOPK))
+        for i, reply in enumerate(served[nlist]):
+            b = i % N_BRANDS
+            got = {pos[p["cap_id"]]: p["score"]
+                   for p in reply["results"][0]["posts"]}
+            want = {pos[n]: float(v) for n, v in zip(en[b], ev[b])}
+            why = differs_but_for_rounding(got, want, moved, K3_TOL)
+            if why:
+                fail("IVF at nprobe = nlist differs from the exact path for "
+                     "brand %d: %s" % (b, why))
+        log("IVF at nprobe = nlist (%d) equals the served exact path over "
+            "all %d posts for every request" % (nlist, N_POSTS))
+
+        def per_call_ms(fn, n=N_REQUESTS - 1):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / n
+        for npb in (8, 64, nlist):
+            ms = per_call_ms(lambda: index.query([3], k=TOPK, nprobe=npb))
+            _, ivf_names = index.query(list(range(N_BRANDS)), k=TOPK,
+                                       nprobe=npb)
+            _, exact_names = uncounted(lambda: index.query(
+                list(range(N_BRANDS)), k=TOPK))
+            overlap = np.mean([len(set(a) & set(b)) / TOPK
+                               for a, b in zip(ivf_names, exact_names)])
+            log("PostIndex.query, 1 brand, IVF nprobe %d: %.3f ms a call; "
+                "recall@%d against the exact path over %d brands %.4f "
+                "(i.i.d. rows: no neighbour structure, not a gate)"
+                % (npb, ms, TOPK, N_BRANDS, overlap))
+        exact = []                     # every counted K3 call is checked
+
+        def exact_one():
+            b = len(exact) % N_BRANDS
+            exact.append((b, index.query([b], k=TOPK)))
+        ms = per_call_ms(exact_one)
+        for b, (vals, names) in exact:
+            with torch.no_grad():
+                rv, ri = topk_int8_ref(brand_embs[b:b + 1], posts,
+                                       index._posts_inv, TOPK,
+                                       n_valid=index.n_posts)
+            if names[0] != [index.cap_ids[j] for j in ri[0].tolist()]:
+                fail("the exact query at B=1 for brand %d differs from the "
+                     "plain top-k" % b)
+            np.testing.assert_allclose(vals[0], rv[0].cpu().numpy(), rtol=0,
+                                       atol=K3_TOL)
+        log("PostIndex.query, 1 brand, exact (K3 at B=1 over %d posts): "
+            "%.3f ms a call; all %d calls equal the plain top-k"
+            % (N_POSTS, ms, len(exact)))
+
+        # an append makes the next IVF query refuse: the sidecar is stale
+        rng = np.random.default_rng(SEED + 1)
+        http(port, "POST", "/v1/add", {
+            "cap_ids": ["late0000000#enc#0"],
+            "embeddings": rng.standard_normal((1, DIM)).tolist(),
+            "brands": [0]})
+        status, err = http_status(port, "POST", "/v1/topk",
+                                  {"brand_ids": [0], "k": TOPK})
+        if status != 400 or "stale" not in err.get("error", ""):
+            fail("after /v1/add the IVF query answered %d %s, not a stale "
+                 "refusal" % (status, err))
+        log("after /v1/add the IVF query refuses: %s" % err["error"][:60])
+    finally:
+        stop(server, thread)
+    del service, ivf
+
+
+def ivf_clustered(dev):
+    """Phase 4c: IVF recall and single-query latency on a clustered corpus
+    (bench.py's measurement): 1,024 topics, noise 0.5, 1M x 1024, made on
+    the card from a seeded generator; `IVFIndex.build` with nlist 2048."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import (
+        quantize_rows_int8, topk_int8)
+    from fancyrec_tpu_torch.serving.ivf import IVFIndex
+
+    nc, nlist = 1024, 2048
+    per = N_POSTS // nc
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    centers = torch.randn(nc, DIM, generator=g, device=dev)
+    posts = (centers[:, None, :] + 0.5 * torch.randn(
+        nc, per, DIM, generator=g, device=dev)).reshape(-1, DIM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = IVFIndex.build(posts, nlist=nlist, iters=10, quantize="int8",
+                         device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q8, qinv = quantize_rows_int8(posts)
+    del posts
+    torch.cuda.empty_cache()
+    pick = torch.randint(0, nc, (8,), generator=g, device=dev)
+    queries = centers[pick] + 0.5 * torch.randn(8, DIM, generator=g,
+                                                device=dev)
+    _, e_idx = uncounted(lambda: topk_int8(queries, q8, qinv, TOPK))
+    e_idx = e_idx.cpu().numpy()
+    log("clustered corpus: %d posts x %d, %d topics; IVFIndex.build nlist "
+        "%d: %.2f s, cap %d, overflow lists %d, spill fraction %.6f"
+        % (nc * per, DIM, nc, nlist, build_s, ivf.cap, ivf.overflow_lists,
+           ivf.spill_frac))
+    q1 = queries[:1]
+    for npb in (8, 64, 256):
+        _, i_idx = ivf.query(queries, k=TOPK, nprobe=npb)
+        recall = float(np.mean([len(set(a) & set(b)) / TOPK
+                                for a, b in zip(e_idx, i_idx)]))
+        log("clustered recall@%d at nprobe %d: %.4f (8 queries near topic "
+            "centres, against the exact int8 top-k)" % (TOPK, npb, recall))
+
+    def host_ms(fn, n=50):
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    with torch.no_grad():
+        ivf_ms = host_ms(lambda: ivf.query(q1, k=TOPK, nprobe=64))
+        ivf_dev = cuda_ms(lambda: ivf._query_one(q1[0], TOPK, 64, "cosine"),
+                          20)
+        exact_ms = uncounted(lambda: host_ms(
+            lambda: topk_int8(q1, q8, qinv, TOPK)[1].cpu()))
+        exact_dev = uncounted(lambda: cuda_ms(
+            lambda: topk_int8(q1, q8, qinv, TOPK), 20))
+    lists = 64 + ivf.overflow_lists
+    bound = lists * ivf.cap * DIM / HBM_BPS * 1e3
+    exact_bound = (nc * per) * DIM / HBM_BPS * 1e3
+    log("single query, k=%d: IVF nprobe 64 (%d lists) %.3f ms (median of "
+        "50, host clock), %.3f ms (CUDA events, no host copy), bytes bound "
+        "%.4f ms; exact K3 at B=1 %.3f ms (host clock), %.3f ms (CUDA "
+        "events), bytes bound %.4f ms"
+        % (TOPK, lists, ivf_ms, ivf_dev, bound, exact_ms, exact_dev,
+           exact_bound))
+    del ivf, q8, qinv
+
+
+def export_path(work, main, dev):
+    """Phase 4d: phase 4's checkpoint exported through the export CLI on the
+    card (and a second time on the CPU, loaded on the card), run without
+    the model code, and served with --artifact."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.eval.evaluator import encode_batch, _MODEL_KEYS
+    from fancyrec_tpu_torch.ops.gru_scan import gru_scan_cuda
+    from fancyrec_tpu_torch.serving import export as sexport
+    from fancyrec_tpu_torch.serving.server import FancyRecService
+
+    first, idx = main["first"], main["idx"]
+    batch = {k: first[k] for k in _MODEL_KEYS}
+    arts = {}
+    for where in (str(dev), "cpu"):
+        out = os.path.join(work, "artifact_" + where.split(":")[0])
+        t0 = time.time()
+        rec = cli_json(sexport.main, [out, "--checkpoint", main["ckpt"],
+                                      "--batch", "0", "--device", where])
+        size = sum(os.path.getsize(os.path.join(out, f))
+                   for f in os.listdir(out))
+        log("export on %s: %.1f s, %d bytes (weights.pt %d); seconds an "
+            "entry: %s" % (where, time.time() - t0, size,
+                           os.path.getsize(os.path.join(out, "weights.pt")),
+                           json.dumps({k: round(v, 2) for k, v in
+                                       rec["seconds"].items()})))
+        arts[where] = out
+    ckpt_bytes = os.path.getsize(main["ckpt"])
+    log("checkpoint %d bytes" % ckpt_bytes)
+
+    def live_cpu(sub):
+        with torch.no_grad():
+            return encode_batch(main["cpu_model"], {
+                k: torch.from_numpy(v) for k, v in sub.items()}).numpy()
+    b_embs = np.load(os.path.join(idx, "brand_embeddings.npy"))
+    for where, out in arts.items():
+        t0 = time.time()
+        model = sexport.ExportedModel(out, device=str(dev))
+        log("artifact exported on %s, loaded on the card: %.1f s; seconds "
+            "an entry: %s" % (where, time.time() - t0, json.dumps(
+                {k: round(v, 2) for k, v in model.load_seconds.items()})))
+        before = gru_scan_cuda.launches
+        got = model.encode_post(batch).cpu().numpy()
+        if gru_scan_cuda.launches != before + 1:
+            fail("encode_post of the artifact exported on %s launched "
+                 "gru_scan %d times, not once"
+                 % (where, gru_scan_cuda.launches - before))
+        err = float(np.abs(got - main["rows"]).max())
+        log("artifact (%s) encode_post, %d posts: max abs err %.3g against "
+            "the index rows" % (where, B_ENC, err))
+        np.testing.assert_allclose(got, main["rows"], **ENC_TOL)
+        np.testing.assert_allclose(got, live_cpu(batch), **ENC_TOL)
+        for b in (1, 2):
+            sub = {k: v[:b] for k, v in batch.items()}
+            before = gru_scan_cuda.launches
+            got_b = model.encode_post(sub).cpu().numpy()
+            if gru_scan_cuda.launches != before + 1:
+                fail("encode_post at B=%d did not launch gru_scan once" % b)
+            np.testing.assert_allclose(got_b, live_cpu(sub), **ENC_TOL)
+        vis = model.embed_vis(batch)
+        if vis.shape != (B_ENC, DIM) or not torch.isfinite(vis).all():
+            fail("bad embed_vis %s" % (tuple(vis.shape),))
+        np.testing.assert_allclose(model.embed_brand().cpu().numpy(), b_embs,
+                                   **ENC_TOL)
+        log("artifact (%s): encode_post at B=%d, 1 and 2 equals the CPU "
+            "model, embed_brand the index's brand embeddings, gru_scan once "
+            "a call" % (where, B_ENC))
+    staged = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    art_ms = uncounted(lambda: cuda_ms(lambda: model.encode_post(staged), 5))
+    log("artifact encode_post of one %d-post batch on the card: %.2f ms "
+        "(the live model's forward: %.2f ms)"
+        % (B_ENC, art_ms, main["fwd_ms"]))
+    del model, staged
+
+    service = FancyRecService(idx, artifact_dir=arts[str(dev)],
+                              quantize="int8", device_resident=False,
+                              device=str(dev))
+    server, thread = serve(service)
+    try:
+        port = server.server_port
+        health = http(port, "GET", "/healthz")
+        if health["artifact_entries"] != sorted(
+                ("encode_post", "embed_brand", "embed_vis", "embed_txt")):
+            fail("healthz lists %s" % health["artifact_entries"])
+        body = {k: v[:2].tolist() for k, v in batch.items()}
+        lat, reply = [], None
+        for _ in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            reply = http(port, "POST", "/v1/encode", body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        embs = np.asarray(reply["embeddings"], np.float32)
+        direct = service.model.encode_post(
+            {k: v[:2] for k, v in batch.items()}).cpu().numpy()
+        np.testing.assert_allclose(embs, direct, **ENC_TOL)
+        rec = http(port, "POST", "/v1/recommend", dict(body, k=5))
+        bn = b_embs / np.linalg.norm(b_embs, axis=1, keepdims=True)
+        en = embs / np.linalg.norm(embs, axis=1, keepdims=True)
+        want = np.argsort(-(en @ bn.T), axis=1)[:, :5]
+        if [[r["brand"] for r in row] for row in rec["results"]] != \
+                want.tolist():
+            fail("/v1/recommend differs from the host cosine top-k")
+        steady = np.array(lat[1:])
+        log("--artifact service: /v1/encode, 2 posts: first %.1f ms; next "
+            "%d: p50 %.1f ms, p90 %.1f ms; /v1/recommend equals the host "
+            "cosine top-5" % (lat[0], len(steady),
+                              float(np.percentile(steady, 50)),
+                              float(np.percentile(steady, 90))))
+    finally:
+        stop(server, thread)
+    del service
 
 
 def instance_args(root, postfix, epochs):
@@ -2302,9 +2766,26 @@ def main():
     try:
         # 4. the serving path, counts zeroed just before and read just after
         zero_counts()
-        main_path(work, dev)
+        served = main_path(work, dev)
         serving = read_counts()
         log("serving path launches: %s" % serving)
+        torch.cuda.empty_cache()
+        # 4b. the IVF sidecar of that index, served (K3 at B=1 on its exact
+        # single-brand queries)
+        zero_counts()
+        ivf_path(served["idx"], dev)
+        ivf_serving = read_counts()
+        log("IVF serving path launches: %s" % ivf_serving)
+        torch.cuda.empty_cache()
+        # 4c. IVF recall and latency on a clustered 1M corpus
+        ivf_clustered(dev)
+        torch.cuda.empty_cache()
+        # 4d. the exported artifact of phase 4's checkpoint, served
+        zero_counts()
+        export_path(work, served, dev)
+        artifact = read_counts()
+        log("artifact path launches: %s" % artifact)
+        del served
         torch.cuda.empty_cache()
         # 5. training: the card's step against the CPU's, then the trainer
         t0 = time.time()
@@ -2319,6 +2800,8 @@ def main():
         torch.cuda.empty_cache()
         profile_update(root, dev)
         torch.cuda.empty_cache()
+        # the trainer's device peak is its own, not phase 4c's corpus
+        torch.cuda.reset_peak_memory_stats(dev)
         training, _ = train_path(root, dev)
         torch.cuda.empty_cache()
         # 6. evaluation: the tester CLI on the trained checkpoint
@@ -2341,14 +2824,22 @@ def main():
         "forward %.3f ms); launches on the training path: %d"
         % (B_TRAIN, fwd_b8["ms"], fwd_b8["library_ms"], training["gru_scan"]))
     paths = {"serving": serving, "training": training,
-             "evaluation": evaluation, "fast training": fast}
-    home = {"gru_scan": "serving", "topk_int8": "serving",
+             "evaluation": evaluation, "fast training": fast,
+             "IVF serving": ivf_serving, "artifact": artifact}
+    # K1-fwd also runs inside the exported programs, K3 on the IVF path's
+    # exact single-brand queries: their records count those launches too
+    home = {"gru_scan": "serving+artifact", "topk_int8": "serving+IVF serving",
             "cosine_scores": "evaluation"}
     for k in kernels:
         k.setdefault("path", home.get(k["name"], "training"))
-        k["launches"] = paths[k["path"]][k.get("counter", k["name"])]
-        if k["launches"] < 1:
-            fail("%s was not launched on its main path" % k["name"])
+        counter = k.get("counter", k["name"])
+        by_path = {p: paths[p][counter] for p in k["path"].split("+")}
+        k["launches"] = sum(by_path.values())
+        if min(by_path.values()) < 1:
+            fail("%s was not launched on its main path: %s"
+                 % (k["name"], by_path))
+        if len(by_path) > 1:
+            k["launches_by_path"] = by_path
     # the bf16 K1 runs on no main path: its numbers go on a line of their own
     for k in k1_bf16:
         k["launches"] = 0
@@ -2361,7 +2852,8 @@ def main():
     # the contract's keys, then, where a record has them, its C entry's time
     # on buffers made once, its kernels' device time, and its path
     print(json.dumps({"kernels": [
-        {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path")
+        {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path",
+                                     "launches_by_path")
          if k in kern}
         for kern in kernels]}))
     print(smi_line)

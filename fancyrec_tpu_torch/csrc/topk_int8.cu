@@ -21,8 +21,8 @@
 // Design: three launches on the caller's stream, no PyTorch op between.
 //   1. `topk_quantize_kernel`, a block a brand row: the same operations as
 //      ops.similarity.quantize_rows_int8 on the card, so q is bit-identical
-//      (reciprocal of the max-abs as an IEEE division, times 127, round half
-//      to even, clip to +-127; b_inv = rsqrtf of the exact sum of squares, 0
+//      (127 over the max-abs as one IEEE division, as the JAX package and
+//      numpy divide, times the row, round half to even, clip to +-127; b_inv = rsqrtf of the exact sum of squares, 0
 //      for an all-zero row). q goes to scratch in rows of round_up(D, 256)
 //      bytes, zero-padded. The same block then scores its brand against the
 //      first 256 valid posts (2,048 where k > 32; rows up to 38 KB or 24 KB)
@@ -305,9 +305,9 @@ __global__ void __launch_bounds__(QUANT_THREADS) topk_quantize_kernel(
   float amax = 0.0f;
 #pragma unroll
   for (int w = 0; w < QUANT_THREADS / 32; ++w) amax = fmaxf(amax, wmax[w]);
-  // torch's 127.0 / amax: the reciprocal, then times 127
-  const float scale =
-      amax > 0.0f ? __fmul_rn(__fdiv_rn(1.0f, amax), 127.0f) : 0.0f;
+  // 127 / amax as one correctly rounded division (not 127 times the
+  // reciprocal, which rounds twice)
+  const float scale = amax > 0.0f ? __fdiv_rn(127.0f, amax) : 0.0f;
   int8_t* qrow = qb + (size_t)blockIdx.x * dq;
   int sq = 0;
   for (int d = tid; d < dq; d += QUANT_THREADS) {

@@ -203,35 +203,46 @@ def gru_scan_bwd_cuda(xw: torch.Tensor, h_prev: torch.Tensor,
 gru_scan_bwd_cuda.launches = 0
 
 
-class _GruScan(torch.autograd.Function):
-    """Forward: the recurrence; backward: the reverse-time kernel for dxw
-    and danp, then dW_hh and db_hh as one einsum and one sum outside it,
-    as `_gru_bwd` forms them (fancyrec_tpu/ops/gru_scan.py:264-272)."""
-
-    @staticmethod
-    def forward(ctx, xw, w_hh, b_hh):
-        fwd = gru_scan_ref if xw.device.type == "cpu" else gru_scan_cuda
-        out = fwd(xw, w_hh, b_hh)
-        ctx.save_for_backward(xw, w_hh, b_hh, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        xw, w_hh, b_hh, out = ctx.saved_tensors
-        hidden = out.shape[-1]
-        h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]], dim=0)
-        bwd = (gru_scan_bwd_ref if xw.device.type == "cpu"
-               else gru_scan_bwd_cuda)
-        dxw, danp = bwd(xw, h_prev, dout.to(xw.dtype), w_hh, b_hh)
-        da_gates = torch.cat([dxw[..., :2 * hidden], danp], dim=-1).float()
-        dw_hh = torch.einsum("tdbg,tdbh->dgh", da_gates,
-                             h_prev.float()).to(w_hh.dtype)
-        db_hh = da_gates.sum(dim=(0, 2)).to(b_hh.dtype)
-        return dxw, dw_hh, db_hh
-
-
+@torch.library.custom_op("fancyrec::gru_scan_fwd", mutates_args=(),
+                         device_types="cpu")
 def gru_scan(xw: torch.Tensor, w_hh: torch.Tensor,
              b_hh: torch.Tensor) -> torch.Tensor:
     """The recurrence on xw's device, differentiable in all three inputs:
-    the CUDA kernels for CUDA tensors, the plain versions for CPU tensors."""
-    return _GruScan.apply(xw, w_hh, b_hh)
+    the CUDA kernels for CUDA tensors, the plain versions for CPU tensors.
+    One operator, so that `torch.export` captures it as one node of a graph
+    (`serving/export.py`)."""
+    return gru_scan_ref(xw, w_hh, b_hh)
+
+
+@gru_scan.register_kernel("cuda")
+def _gru_scan_cuda_op(xw, w_hh, b_hh):
+    return gru_scan_cuda(xw, w_hh, b_hh)
+
+
+@gru_scan.register_fake
+def _gru_scan_fake(xw, w_hh, b_hh):
+    t, _, b, g3 = xw.shape
+    return xw.new_empty((t, 2, b, g3 // 3))
+
+
+def _gru_scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output)
+
+
+def _gru_scan_backward(ctx, dout):
+    """The reverse-time kernel for dxw and danp, then dW_hh and db_hh as one
+    einsum and one sum outside it, as `_gru_bwd` forms them
+    (fancyrec_tpu/ops/gru_scan.py:264-272)."""
+    xw, w_hh, b_hh, out = ctx.saved_tensors
+    hidden = out.shape[-1]
+    h_prev = torch.cat([torch.zeros_like(out[:1]), out[:-1]], dim=0)
+    bwd = gru_scan_bwd_ref if xw.device.type == "cpu" else gru_scan_bwd_cuda
+    dxw, danp = bwd(xw, h_prev, dout.to(xw.dtype), w_hh, b_hh)
+    da_gates = torch.cat([dxw[..., :2 * hidden], danp], dim=-1).float()
+    dw_hh = torch.einsum("tdbg,tdbh->dgh", da_gates,
+                         h_prev.float()).to(w_hh.dtype)
+    db_hh = da_gates.sum(dim=(0, 2)).to(b_hh.dtype)
+    return dxw, dw_hh, db_hh
+
+
+gru_scan.register_autograd(_gru_scan_backward, setup_context=_gru_scan_setup)

@@ -155,7 +155,10 @@ def quantize_rows_int8(rows: torch.Tensor
     multiply, round half to even, clip), so q is bit-identical."""
     rows = rows.float()
     amax = rows.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    # one IEEE division, as jnp and numpy divide: `127.0 / amax` on a tensor
+    # is 127 times the reciprocal, which rounds twice
+    scale = torch.where(amax > 0, torch.full_like(amax, 127.0) / amax,
+                        torch.zeros_like(amax))
     q = torch.clamp(torch.round(rows * scale), -127, 127).to(torch.int8)
     sq = q.float().square().sum(dim=1)
     inv = torch.where(sq > 0, torch.rsqrt(torch.clamp(sq, min=1.0)),

@@ -4,15 +4,18 @@ Port of fancyrec_tpu/serving/index.py on one device. The on-disk index is
 the JAX package's (a BigFile of post embeddings with tab-delimited cap ids,
 brands.npy, brand_embeddings.npy, index_meta.json, and the int8 sidecar
 feature.int8.bin + inv_norms.npy), so an index built by either package
-serves in the other. Not ported: meshes and the IVF sidecar (a query
-with nprobe > 0 gets the JAX package's "no IVF sidecar" error).
+serves in the other; so does the IVF-Flat sidecar under <index>/ivf
+(`serving/ivf.py`, built by `ivf-build`, read by `query(..., nprobe>0)`).
+Not ported: meshes.
 
 CLI (runs on CUDA unless --device cpu):
   python -m fancyrec_tpu_torch.serving.index build out/ --checkpoint ... \
       --rootpath ... --collection ...
   python -m fancyrec_tpu_torch.serving.index add out/ --rootpath ... \
       --collection newposts
-  python -m fancyrec_tpu_torch.serving.index query out/ --brands 0,3 --k 10
+  python -m fancyrec_tpu_torch.serving.index ivf-build out/ --quantize int8
+  python -m fancyrec_tpu_torch.serving.index query out/ --brands 0,3 --k 10 \
+      [--nprobe 8]
 """
 
 from __future__ import annotations
@@ -234,10 +237,12 @@ class PostIndex:
     quantize="int8" keeps the index int8 on the device (quantized on the
     host, so loads ship 1 byte/elem); a query that `fused_eligible` admits
     answers with the fused int8 score+top-k, the others with
-    `retrieval_topk` over the same int8 rows.
+    `retrieval_topk` over the same int8 rows. device_resident=False loads
+    the posts at the first exact query (an IVF-only caller never does).
     """
 
-    def __init__(self, index_dir: str, quantize: str = "", device="cuda"):
+    def __init__(self, index_dir: str, quantize: str = "", device="cuda",
+                 device_resident: bool = True):
         if quantize not in ("", "int8"):
             raise ValueError("quantize must be '' or 'int8'")
         self.device = resolve_device(device)
@@ -246,7 +251,8 @@ class PostIndex:
         self.brand_embs = np.load(
             os.path.join(index_dir, "brand_embeddings.npy"))
         self.refresh()
-        self.posts()
+        if device_resident:
+            self.posts()
 
     def refresh(self) -> None:
         """(Re)read the store after append_to_index; drops the device copy."""
@@ -258,6 +264,35 @@ class PostIndex:
         self.n_posts = self.store.nr_of_rows
         self._posts = None
         self._posts_inv = None
+        # appends invalidate the IVF sidecar's layout: the next ivf() call
+        # rereads ivf_meta.json and flags a row-count mismatch as stale
+        self._ivf = None
+        self._ivf_stale = ""
+
+    def ivf(self):
+        """The lazily loaded IVF sidecar (build_ivf_sidecar), or None.
+
+        Its packed row indices point into the store it was built from;
+        ivf_meta.json records that store's row count (source_posts), and a
+        mismatch marks the sidecar stale: the ANN path refuses until
+        `ivf-build` runs again."""
+        if self._ivf is None:
+            self._ivf_stale = ""
+            ivf_dir = os.path.join(self._index_dir, "ivf")
+            meta_path = os.path.join(ivf_dir, "ivf_meta.json")
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    src = json.loads(f.read()).get("source_posts", -1)
+                if src != self.n_posts:
+                    self._ivf_stale = (
+                        "IVF sidecar is stale: built over %s posts, store "
+                        "now has %d -- rerun `fancyrec-index ivf-build %s`"
+                        % (src if src >= 0 else "unknown", self.n_posts,
+                           self._index_dir))
+                    return None
+                from fancyrec_tpu_torch.serving.ivf import IVFIndex
+                self._ivf = IVFIndex.load(ivf_dir, device=self.device)
+        return self._ivf
 
     def _load_quantized(self):
         """int8 rows + inv-norm sidecar, cached on disk next to the store
@@ -305,11 +340,22 @@ class PostIndex:
         """-> (scores (B, k), [[cap_id, ...] per brand]) best-first.
 
         When k exceeds the number of posts, the trailing slots carry score
-        -inf and name None."""
+        -inf and name None. nprobe > 0 answers from the IVF sidecar
+        (approximate; it reads about nprobe/nlist of the index, for
+        single-brand queries over large indexes)."""
         if nprobe > 0:
-            raise ValueError(
-                "nprobe given but no IVF sidecar: run "
-                "`fancyrec-index ivf-build %s` first" % self._index_dir)
+            ivf = self.ivf()
+            if ivf is None:
+                raise ValueError(
+                    self._ivf_stale
+                    or "nprobe given but no IVF sidecar: run "
+                       "`fancyrec-index ivf-build %s` first"
+                       % self._index_dir)
+            vals, idxs = ivf.query(self.brand_embs[np.asarray(brand_ids)],
+                                   k=k, nprobe=nprobe)
+            names = [[self.cap_ids[i] if i >= 0 else None for i in row]
+                     for row in idxs]
+            return vals, names
         q = torch.from_numpy(self.brand_embs[np.asarray(brand_ids)]).to(
             self.device)
         posts = self.posts()
@@ -326,6 +372,33 @@ class PostIndex:
                   for i, v in zip(row, vrow)]
                  for row, vrow in zip(idxs, vals)]
         return vals, names
+
+
+def build_ivf_sidecar(index_dir: str, nlist: int = None, iters: int = 10,
+                      quantize: str = "", seed: int = 0,
+                      train_rows: int = 524288, device="cuda") -> dict:
+    """Build the IVF-Flat sidecar of an index directory under
+    <index_dir>/ivf, for PostIndex.query(..., nprobe=N). Rows stream from
+    the store in chunks (`IVFIndex.build_chunked`); k-means trains on an
+    evenly-strided sample of `train_rows` rows. -> a summary with the
+    seconds of each build stage."""
+    from fancyrec_tpu_torch.serving.ivf import IVFIndex
+
+    dev = resolve_device(device)
+    store = BigFileReader(index_dir, delimiter="\t")
+    ivf = IVFIndex.build_chunked(
+        lambda lo, hi: store.read_rows(np.arange(lo, hi)),
+        store.nr_of_rows, store.ndims, nlist=nlist, iters=iters, seed=seed,
+        quantize=quantize, train_rows=train_rows, device=dev)
+    out = os.path.join(index_dir, "ivf")
+    # the store size the sidecar indexes, part of ivf_meta.json: PostIndex
+    # refuses a sidecar whose row space no longer matches the store
+    ivf.source_posts = store.nr_of_rows
+    ivf.save(out)
+    return {"nlist": int(ivf.nlist), "cap": int(ivf.cap),
+            "posts": store.nr_of_rows, "spill_frac": ivf.spill_frac,
+            "overflow_lists": int(ivf.overflow_lists), "out": out,
+            "seconds": ivf.build_seconds}
 
 
 def main(argv=None):
@@ -349,11 +422,23 @@ def main(argv=None):
                          "checkpoint) and append")
     ad.add_argument("--batch_size", type=int, default=128)
     ad.add_argument("--bert_vocab", default="")
+    iv = sub.add_parser("ivf-build", parents=[common])
+    iv.add_argument("index_dir")
+    iv.add_argument("--nlist", type=int, default=0,
+                    help="coarse clusters (default ~2*sqrt(N))")
+    iv.add_argument("--iters", type=int, default=10)
+    iv.add_argument("--quantize", default="", choices=["", "int8"])
+    iv.add_argument("--seed", type=int, default=0)
+    iv.add_argument("--kmeans_train_rows", type=int, default=524288,
+                    help="k-means training sample size (strided)")
     q = sub.add_parser("query", parents=[common])
     q.add_argument("index_dir")
     q.add_argument("--brands", required=True,
                    help="comma-separated brand ids")
     q.add_argument("--k", type=int, default=10)
+    q.add_argument("--nprobe", type=int, default=0,
+                   help=">0: approximate single-query path over the IVF "
+                        "sidecar, probing nprobe coarse clusters")
     q.add_argument("--quantize", default="", choices=["", "int8"])
     a = p.parse_args(argv)
     if a.cmd == "build":
@@ -365,10 +450,18 @@ def main(argv=None):
                                     a.batch_size, a.bert_vocab,
                                     device=a.device)
         print(json.dumps({"total_posts": n, "index": a.index_dir}))
+    elif a.cmd == "ivf-build":
+        info = build_ivf_sidecar(a.index_dir, nlist=a.nlist or None,
+                                 iters=a.iters, quantize=a.quantize,
+                                 seed=a.seed,
+                                 train_rows=a.kmeans_train_rows,
+                                 device=a.device)
+        print(json.dumps(info))
     else:
-        index = PostIndex(a.index_dir, quantize=a.quantize, device=a.device)
+        index = PostIndex(a.index_dir, quantize=a.quantize, device=a.device,
+                          device_resident=a.nprobe == 0)
         ids = [int(x) for x in a.brands.split(",")]
-        vals, names = index.query(ids, k=a.k)
+        vals, names = index.query(ids, k=a.k, nprobe=a.nprobe)
         for b_id, v, n in zip(ids, vals, names):
             print(json.dumps({"brand": b_id,
                               "results": [{"post": pid,

@@ -7,15 +7,19 @@ PostIndex (serving/index.py) on one device and answers JSON queries:
   GET  /metrics                     per-route request counts, error
                                      counts, and latency percentiles
                                      (p50/p90/p99 over a sliding window)
-  POST /v1/topk      {"brand_ids": [0,3], "k": 10}
-                       -> top-k posts per brand
+  POST /v1/topk      {"brand_ids": [0,3], "k": 10, "nprobe": 0}
+                       -> top-k posts per brand (nprobe > 0: through the
+                          IVF sidecar; --default_nprobe sets the default)
+  POST /v1/encode    {"frames": ..., "origin": ..., "vmask": ..., "bows":
+                      ..., "tokens": ..., "type_ids": ..., "tmask": ...}
+                       -> post embeddings from the exported model
+                          (--artifact, serving/export.py)
+  POST /v1/recommend {same inputs, "k": 5}
+                       -> top-k brands for each new post (cosine against
+                          the index's brand embeddings, on the host)
   POST /v1/add       {"cap_ids": [...], "embeddings": [[...]],
                       "brands": [...]}
                        -> incremental index append + live refresh
-  POST /v1/encode, /v1/recommend
-                       -> 400 "no --artifact loaded": model export is not
-                          ported, so these answer as the JAX service does
-                          without an artifact
 
 Every device touch runs under one lock; the HTTP layer is threaded so
 /healthz stays responsive during a long query. /v1/topk requests that
@@ -24,7 +28,8 @@ arrive while the device is busy are coalesced into one batched query
 arrivals get 429 + Retry-After (_AdmissionGate).
 
 CLI: python -m fancyrec_tpu_torch.serving.server INDEX_DIR [--port 8080]
-         [--quantize int8] [--max_pending 64] [--device cuda|cpu]
+         [--artifact DIR] [--quantize int8] [--default_nprobe 0]
+         [--max_pending 64] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+
+def _l2n(x, axis=-1):
+    return x / np.maximum(np.linalg.norm(x, axis=axis, keepdims=True), 1e-12)
 
 
 def _positive_k(body: dict, default: int = 10) -> int:
@@ -270,13 +279,17 @@ class _TopkCoalescer:
 class FancyRecService:
     """The transport-free serving core (used directly by tests/embeds)."""
 
-    def __init__(self, index_dir: str, quantize: str = "",
-                 max_pending: int = 64, device="cuda"):
+    def __init__(self, index_dir: str, artifact_dir: str = None,
+                 quantize: str = "", default_nprobe: int = 0,
+                 device_resident: bool = True, max_pending: int = 64,
+                 device="cuda"):
         from fancyrec_tpu_torch.serving.index import PostIndex
 
         self._lock = threading.Lock()          # serialize all device work
-        self.index = PostIndex(index_dir, quantize=quantize, device=device)
+        self.index = PostIndex(index_dir, quantize=quantize, device=device,
+                               device_resident=device_resident)
         self._index_dir = index_dir
+        self.default_nprobe = default_nprobe
         self.stats = _RouteStats()
         self.gate = _AdmissionGate(max_pending=max_pending)
         # /v1/topk coalescing: index.query resolved at call time so
@@ -284,6 +297,10 @@ class FancyRecService:
         self._coalescer = _TopkCoalescer(
             lambda ids, k, npb: self.index.query(ids, k=k, nprobe=npb),
             self._lock)
+        self.model = None
+        if artifact_dir:
+            from fancyrec_tpu_torch.serving.export import ExportedModel
+            self.model = ExportedModel(artifact_dir, device=device)
 
     # -- endpoints -------------------------------------------------------
 
@@ -294,7 +311,8 @@ class FancyRecService:
             "brand_num": int(self.index.brand_embs.shape[0]),
             "dim": int(self.index.meta["dim"]),
             "quantize": self.index.quantize,
-            "artifact_entries": [],
+            "artifact_entries": (self.model.entry_points
+                                 if self.model else []),
         }
 
     def topk(self, body: dict) -> dict:
@@ -310,7 +328,7 @@ class FancyRecService:
             raise ValueError("brand_ids out of range [0, %d): %s"
                              % (n_brands, bad))
         k = _positive_k(body)
-        nprobe = _nonneg_int(body, "nprobe", 0)
+        nprobe = _nonneg_int(body, "nprobe", self.default_nprobe)
         vals, names = self._coalescer.query(brand_ids, k, nprobe)
         return {"results": [
             {"brand": int(b),
@@ -318,11 +336,34 @@ class FancyRecService:
                        for v, n in zip(vrow, nrow) if n is not None]}
             for b, vrow, nrow in zip(brand_ids, vals, names)]}
 
-    def encode(self, body: dict) -> dict:
-        raise ValueError("no --artifact loaded: /v1/encode and "
-                         "/v1/recommend need an exported model")
+    def _encode(self, body: dict) -> np.ndarray:
+        if self.model is None:
+            raise ValueError("no --artifact loaded: /v1/encode and "
+                             "/v1/recommend need an exported model")
+        missing = [a for a in self.model.manifest["entries"]
+                   ["encode_post"]["args"] if a not in body]
+        if missing:
+            raise ValueError("missing encode inputs: %s" % missing)
+        with self._lock:
+            return self.model.encode_post(body).float().cpu().numpy()
 
-    recommend = encode
+    def encode(self, body: dict) -> dict:
+        embs = self._encode(body)
+        return {"embeddings": embs.tolist()}
+
+    def recommend(self, body: dict) -> dict:
+        """Top-k brands for NEW posts: which brands this content should be
+        recommended to."""
+        k = _positive_k(body, default=5)
+        embs = self._encode(body)
+        brands = _l2n(self.index.brand_embs.astype(np.float32))
+        scores = _l2n(embs) @ brands.T               # (B_posts, n_brands)
+        k = min(k, scores.shape[1])
+        order = np.argsort(-scores, axis=1)[:, :k]
+        return {"results": [
+            [{"brand": int(b), "score": float(row_scores[b])}
+             for b in row_order]
+            for row_scores, row_order in zip(scores, order)]}
 
     def add(self, body: dict) -> dict:
         from fancyrec_tpu_torch.serving.index import append_to_index
@@ -427,15 +468,23 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         description="serve brand<->post retrieval over a built index")
     p.add_argument("index_dir")
+    p.add_argument("--artifact", default="",
+                   help="exported model dir (serving.export) enabling "
+                        "/v1/encode and /v1/recommend")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--quantize", default="", choices=["", "int8"])
+    p.add_argument("--default_nprobe", type=int, default=0,
+                   help=">0 routes /v1/topk through the IVF sidecar "
+                        "unless the request overrides nprobe")
     p.add_argument("--max_pending", type=int, default=64,
                    help="max concurrent device-bound requests before new "
                         "arrivals are shed with 429 + Retry-After")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    service = FancyRecService(a.index_dir, quantize=a.quantize,
+    service = FancyRecService(a.index_dir, artifact_dir=a.artifact or None,
+                              quantize=a.quantize,
+                              default_nprobe=a.default_nprobe,
                               max_pending=a.max_pending, device=a.device)
     server = make_server(service, a.host, a.port)
     print(json.dumps({"serving": "http://%s:%d" % server.server_address,

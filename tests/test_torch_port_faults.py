@@ -8,7 +8,10 @@ against it on the CPU:
    shape (`fused_eligible`), so a 30-wide int8 index serves through
    `retrieval_topk` as in the JAX package, and the kernel takes every
    width a 4-byte-word index has (4096 too);
-4. `--validate_split check` validates on the train split.
+4. `--validate_split check` validates on the train split;
+5. the int8 quantizer's scale is one division, 127 / amax, as the JAX
+   package's (in torch, `127.0 / tensor` is 127 times the reciprocal,
+   which rounds twice and moves q by one in rare elements).
 """
 
 import json
@@ -245,3 +248,21 @@ def test_validate_split_picks_its_collection(tiny_root, monkeypatch, split,
     ids, final_batch, n_batches = seen[0]
     assert ids == want and final_batch == "pad"
     assert n_batches == -(-len(want) // 4)
+
+
+def test_quantize_scale_is_one_division_as_jax():
+    import jax
+    import jax.numpy as jnp
+    from fancyrec_tpu.ops import similarity as jsim
+
+    # 20,000 rows of 32: a few elements sit where 127 x (1 / amax) and
+    # 127 / amax round x * scale to different integers
+    rows = np.random.RandomState(0).randn(20000, 32).astype(np.float32)
+    qj, ij = (np.asarray(a) for a in
+              jax.jit(jsim.quantize_rows_int8)(jnp.asarray(rows)))
+    qt, it = tsim.quantize_rows_int8(torch.from_numpy(rows))
+    qn, _ = tsim.quantize_rows_int8_np(rows)
+    assert np.array_equal(qt.numpy(), qj)
+    assert np.array_equal(qn, qj)
+    # the inverse norms: the same exact sums; lax.rsqrt is within two ulps
+    np.testing.assert_allclose(it.numpy(), ij, rtol=2.0 ** -22, atol=0)

@@ -49,6 +49,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "fancyrec_tpu_torch/io/msgpack.py",
             "fancyrec_tpu_torch/utils/profiling.py",
             "fancyrec_tpu_torch/models/torch_import.py",
+            "fancyrec_tpu_torch/serving/ivf.py",
+            "fancyrec_tpu_torch/serving/export.py",
             "fancyrec_tpu_torch/utils/tb_events.py"} <= scanned
     bad = ["%s:%d imports %s" % (f.relative_to(ROOT), line, mod)
            for f in files for line, mod in _imported_modules(f)
@@ -64,7 +66,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
     from fancyrec_tpu_torch.device import resolve_device
     from fancyrec_tpu_torch.eval import tester
-    from fancyrec_tpu_torch.serving import index, server
+    from fancyrec_tpu_torch.serving import export, index, ivf, server
     from fancyrec_tpu_torch.train import trainer
 
     for dev in (None, "cuda", "cuda:0"):
@@ -81,6 +83,20 @@ def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
         index.main(["query", str(tmp_path), "--brands", "0"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         server.main([str(tmp_path), "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        index.build_ivf_sidecar(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        index.main(["ivf-build", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ivf.IVFIndex.build(torch.zeros(4, 2).numpy())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ivf.IVFIndex.load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.export_model("ckpt", str(tmp_path / "art"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.ExportedModel(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.main([str(tmp_path / "art"), "--checkpoint", "ckpt"])
     for dev in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer.main(["train", "val", "test", "--rootpath",
