@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and evaluation paths on one
-NVIDIA GPU and check them.
+NVIDIA GPU and check them, and its offline preprocessing.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -69,10 +69,23 @@ Phases:
      tester CLI on its
      checkpoint as in 6;
   8. a checkpoint the JAX package wrote (tests/data/frtpu1_tiny.pth.tar)
-     read by `load_any` onto the card: its encode equals the CPU's.
+     read by `load_any` onto the card: its encode equals the CPU's;
+  9. offline preprocessing: (a) the ResNet-152 extractor at full depth
+     (random weights from a seed, 224 x 224) on 4 images: float32 on the
+     card equals the CPU's with either stem, bf16 on the card within
+     RESNET_BF16_TOL of the CPU's float32; (b) the bf16 extractor's
+     frames/s at B=128 (on a batch on the card, and from a pinned host
+     batch), each stem, cuDNN's autotuner off and on, against the bound of
+     its convolutions' operations; (c) `extract_features` on the card over
+     4,096 synthetic frames into a BigFile (one batch's rows bit for bit
+     the extractor's, frameinfo and format_check pass); (d) where cv2
+     imports, the JAX package's bench_preprocess videos decoded on threads
+     into `extract_features`.
 The kernels' launch counts are zeroed just before each of the seven paths
 (4, 4b, 4d, 5c, 6, 7's trainer and 7's tester) and read just after: each
 kernel must have run on its path (K1-fwd on 4 and 4d, K3 on 4 and 4b).
+Phase 9 runs cuDNN's convolutions and none of the six kernels: its counts
+are printed, not required.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
@@ -134,6 +147,18 @@ K4_TOL = 2e-5     # float32 sums over D=1024 in another order; the JAX
                   # package's tolerance for its kernel (test_similarity_ops)
 N_EVAL = N_BRANDS * (TRAIN_VIDEOS_PER_BRAND + TRAIN_IMGS_PER_BRAND)  # test
 ENC_TOL = dict(atol=1e-4, rtol=1e-3)   # card vs CPU, float32, no TF32
+# preprocessing: the ResNet-152 extractor at 224 x 224 and the JAX
+# package's batch of 128; a stream of 32 such batches
+RESNET_HW, B_EXTRACT, N_RESNET_CHECK, N_STREAM = 224, 128, 4, 4096
+# bf16 extractor on the card vs the float32 one on the CPU, relative L2 an
+# image: twice the JAX package's own bf16-vs-float32 spread, 3.5696e-3 (its
+# make_extractor at full depth on its init_random_params() tree, 4 uint8
+# images from numpy seed 0, the largest of the 4; measured once on a CPU
+# with jax 0.9.0, outside this script)
+RESNET_BF16_TOL = 2 * 3.5696e-3
+# the decode leg: the JAX package's bench_preprocess videos
+N_DECODE_VIDEOS, DECODE_FRAMES, DECODE_SIZE, DECODE_WORKERS = 8, 450, (
+    640, 360), 4
 
 
 def fail(msg):
@@ -1466,6 +1491,14 @@ def ptxas_lines(report):
     return pairs
 
 
+def smi_name_power():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def roofline(nbytes, ops, peak):
     """The least time for the work: bytes over HBM rate vs ops over peak."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
@@ -2709,6 +2742,308 @@ def frtpu1_card(dev):
         fail("the FRTPU1 checkpoint on the card disagrees with the CPU")
 
 
+def resnet_flops(blocks, hw=RESNET_HW):
+    """Operations of one image through the extractor's convolutions,
+    counted from their shapes: 2 Cout Cin kh kw Hout Wout each, the plain
+    7x7/2 stem (the space-to-depth one does the same work over padded
+    taps)."""
+    def conv(cin, cout, k, out_hw):
+        return 2 * cout * cin * k * k * out_hw * out_hw
+
+    hw //= 2
+    total = conv(3, 64, 7, hw)
+    hw //= 2                      # the 3x3/2 max pool
+    cin, width = 64, 64
+    for stage, n_blocks in enumerate(blocks):
+        for b in range(n_blocks):
+            out_hw = hw // 2 if (stage > 0 and b == 0) else hw
+            total += (conv(cin, width, 1, hw) + conv(width, width, 3, out_hw)
+                      + conv(width, 4 * width, 1, out_hw))
+            if b == 0:
+                total += conv(cin, 4 * width, 1, out_hw)
+            cin, hw = 4 * width, out_hw
+        width *= 2
+    return total
+
+
+def resnet_card_vs_cpu(state, dev):
+    """Phase 9a: the ResNet-152 extractor at full depth on 4 seeded images:
+    the float32 extractor on the card equals the CPU's within ENC_TOL with
+    either stem; the bf16 extractor on the card, with either stem, sits
+    within RESNET_BF16_TOL of the CPU's float32 features (relative L2 an
+    image)."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.models.resnet import make_extractor
+
+    imgs = np.random.RandomState(SEED).randint(
+        0, 256, (N_RESNET_CHECK, RESNET_HW, RESNET_HW, 3)).astype(np.uint8)
+    t0 = time.time()
+    want = make_extractor(state, N_RESNET_CHECK, torch.float32, True,
+                          "cpu")(imgs)
+    cpu_s = time.time() - t0
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s2d in (True, False):
+            extract = make_extractor(state, N_RESNET_CHECK, dtype, s2d, dev)
+            out[dtype, s2d] = extract(imgs).cpu()
+    errs = {}
+    for s2d in (True, False):
+        got = out[torch.float32, s2d]
+        errs["f32", s2d] = (got - want).abs().max().item()
+        if got.shape != (N_RESNET_CHECK, 2048) or not (
+                torch.isfinite(got).all()
+                and torch.allclose(got, want, **ENC_TOL)):
+            fail("ResNet-152 float32 on the card (stem_s2d=%s) disagrees "
+                 "with the CPU: max |diff| %.3g" % (s2d, errs["f32", s2d]))
+        # relative L2 error of each image
+        errs["bf16", s2d] = ((out[torch.bfloat16, s2d] - want).norm(dim=1)
+                             / want.norm(dim=1)).max().item()
+        if not errs["bf16", s2d] < RESNET_BF16_TOL:
+            fail("ResNet-152 bf16 on the card (stem_s2d=%s) is %.3g from "
+                 "the CPU's float32 features (relative L2), above %.3g"
+                 % (s2d, errs["bf16", s2d], RESNET_BF16_TOL))
+    stems = (out[torch.float32, True] - out[torch.float32, False]).abs()
+    log("ResNet-152 at %d x %d, %d images (CPU float32 in %.1f s): card "
+        "float32 vs CPU max |diff| %.3g (s2d stem) / %.3g (plain stem), "
+        "tolerance atol %g rtol %g; the two stems on the card in float32 "
+        "max |diff| %.3g; card bf16 vs CPU float32, relative L2 per image, "
+        "max %.4g (s2d) / %.4g (plain), tolerance %.4g; largest |feature| "
+        "%.1f"
+        % (RESNET_HW, RESNET_HW, N_RESNET_CHECK, cpu_s, errs["f32", True],
+           errs["f32", False], ENC_TOL["atol"], ENC_TOL["rtol"],
+           stems.max().item(), errs["bf16", True], errs["bf16", False],
+           RESNET_BF16_TOL, want.abs().max().item()))
+    if not torch.allclose(out[torch.float32, True], out[torch.float32, False],
+                          **ENC_TOL):
+        fail("the two ResNet stems disagree on the card")
+    return errs
+
+
+def resnet_throughput(state, dev):
+    """Phase 9b: frames/s of the bf16 extractor at B=128, by CUDA events
+    (medians of 5 windows of 5 calls): on a uint8 batch already on the card
+    (the extractor's ceiling) and from a pinned host batch (the copy
+    included), with each stem, with cuDNN's autotuner
+    (torch.backends.cudnn.benchmark) off, as the package runs it, and on;
+    the stems alone; against the bound of the convolutions' operations at
+    the bf16 peak."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fancyrec_tpu_torch.models.resnet import (
+        RESNET152_BLOCKS, _stem_s2d, make_extractor)
+
+    batch = np.random.RandomState(SEED + 1).randint(
+        0, 256, (B_EXTRACT, RESNET_HW, RESNET_HW, 3)).astype(np.uint8)
+    host = torch.from_numpy(batch).pin_memory()
+    on_card = host.to(dev)
+    flops = resnet_flops(RESNET152_BLOCKS) * B_EXTRACT
+    nbytes = batch.nbytes + 2 * sum(v.numel() for v in state.values()) \
+        + B_EXTRACT * 2048 * 4
+    bound = roofline(nbytes, flops, BF16_FLOPS)
+
+    def median_ms(fn):
+        return statistics.median(cuda_ms(fn, 5) for _ in range(5))
+
+    rec = {"flops_per_image": flops / B_EXTRACT, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"],
+           "bound_fps": B_EXTRACT / bound["bound_ms"] * 1e3}
+    saved = torch.backends.cudnn.benchmark
+    try:
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            for s2d in (True, False):
+                torch.cuda.reset_peak_memory_stats(dev)
+                extract = make_extractor(state, B_EXTRACT, torch.bfloat16,
+                                         s2d, dev)
+                tag = "%s_%s" % ("s2d" if s2d else "plain",
+                                 "bench" if bench else "default")
+                rec["ms_" + tag] = median_ms(lambda: extract(on_card))
+                if s2d and not bench:
+                    rec["ms_host_" + tag] = median_ms(lambda: extract(host))
+                    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                del extract
+        torch.backends.cudnn.benchmark = False
+        x = (on_card.permute(0, 3, 1, 2).to(torch.bfloat16))
+        k = state["conv1.weight"].to(dev, torch.bfloat16)
+        rec["stem_ms_s2d"] = median_ms(lambda: _stem_s2d(x, k))
+        rec["stem_ms_plain"] = median_ms(
+            lambda: F.conv2d(x, k, stride=2, padding=3))
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    ms = rec["ms_s2d_default"]
+    rec["fps"] = B_EXTRACT / ms * 1e3
+    rec["fps_host"] = B_EXTRACT / rec["ms_host_s2d_default"] * 1e3
+    rec["bound_share"] = bound["bound_ms"] / ms
+    log("ResNet-152 bf16 extractor, B=%d, %d x %d, cudnn.benchmark off: "
+        "%.3f ms a batch on a uint8 batch on the card (%.1f frames/s, the "
+        "extractor's ceiling), %.3f ms from a pinned host batch (%.1f "
+        "frames/s); bound %.3f ms (%s: %.4g GFLOP an image at %g TFLOP/s "
+        "bf16; %.0f frames/s), share %.3f; device peak %.2f GB; %s"
+        % (B_EXTRACT, RESNET_HW, RESNET_HW, ms, rec["fps"],
+           rec["ms_host_s2d_default"], rec["fps_host"], bound["bound_ms"],
+           bound["bound_by"], rec["flops_per_image"] / 1e9,
+           BF16_FLOPS / 1e12, rec["bound_fps"], rec["bound_share"],
+           rec["peak_gb"], smi_name_power()))
+    log("ResNet-152 bf16 stems: whole extractor s2d %.3f / plain %.3f ms "
+        "(cudnn.benchmark off), s2d %.3f / plain %.3f ms (on); the stem "
+        "alone s2d %.4f / plain %.4f ms"
+        % (rec["ms_s2d_default"], rec["ms_plain_default"],
+           rec["ms_s2d_bench"], rec["ms_plain_bench"], rec["stem_ms_s2d"],
+           rec["stem_ms_plain"]))
+    return rec
+
+
+def stream_frames(pool, n):
+    """(name, frame) pairs of n frames drawn from pool in turn: videos of
+    32 frames sampled every 15th frame, over the 51 brands."""
+    for i in range(n):
+        v = i // 32
+        yield ("video%d_%d_cls%d" % (v + 1, (i % 32) * 15, v % N_BRANDS),
+               pool[i % len(pool)])
+
+
+def extraction_path(work, state, dev):
+    """Phase 9c: `preprocess.features.extract_features` on the card over a
+    synthetic stream of N_STREAM uint8 frames (batches of 128) into a
+    BigFile; one batch's rows equal the extractor's direct output bit for
+    bit; `frameinfo` and `format_check` pass on the result."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.io.bigfile import ImageBigFile
+    from fancyrec_tpu_torch.io.format_check import check_feature_dir
+    from fancyrec_tpu_torch.models.resnet import make_extractor
+    from fancyrec_tpu_torch.preprocess.features import extract_features
+    from fancyrec_tpu_torch.preprocess.frameinfo import get_frame_info
+
+    pool = np.random.default_rng(SEED + 2).integers(
+        0, 256, (N_STREAM, RESNET_HW, RESNET_HW, 3), np.uint8)
+    out = os.path.join(work, "video_features")
+    stats = {}
+    t0 = time.perf_counter()
+    n = extract_features(stream_frames(pool, N_STREAM), out,
+                         batch_size=B_EXTRACT, params=state, stats=stats,
+                         device=dev)
+    wall = time.perf_counter() - t0
+    stream_s = stats["wait_s"] + stats["compute_s"] + stats["write_s"]
+    if n != N_STREAM:
+        fail("extract_features wrote %d rows of %d" % (n, N_STREAM))
+    store = ImageBigFile(out)
+    b = 5                          # one batch, held bit for bit
+    rows = store.read_rows(range(b * B_EXTRACT, (b + 1) * B_EXTRACT))
+    extract = make_extractor(state, B_EXTRACT, torch.bfloat16, True, dev)
+    direct = extract(pool[b * B_EXTRACT:(b + 1) * B_EXTRACT]).cpu().numpy()
+    if not np.array_equal(rows, direct):
+        fail("the BigFile's rows of batch %d differ from the extractor's "
+             "output (max |diff| %.3g)" % (b, np.abs(rows - direct).max()))
+    v2f = get_frame_info(out)
+    problems = check_feature_dir(out)
+    if problems or len(v2f) != N_STREAM // 32 or store.ndims != 2048:
+        fail("the extracted BigFile fails its checks: %s, %d videos"
+             % (problems, len(v2f)))
+    rec = {"frames": n, "wall_s": wall, "stream_s": stream_s,
+           "fps": n / stream_s, "fps_wall": n / wall, **stats}
+    log("extract_features on the card: %d frames in %d batches of %d, "
+        "%.2f s streaming (%.1f frames/s; %.2f s and %.1f frames/s with "
+        "the extractor's build): wait %.3f s, compute %.3f s, write %.3f s;"
+        " batch %d bit for bit; frameinfo (%d videos) and format_check pass"
+        % (n, stats["batches"], B_EXTRACT, stream_s, rec["fps"], wall,
+           rec["fps_wall"], stats["wait_s"], stats["compute_s"],
+           stats["write_s"], b, len(v2f)))
+    return rec
+
+
+def decode_path(work, state, dev):
+    """Phase 9d, where cv2 imports: the JAX package's bench_preprocess on
+    the card (8 synthetic mp4s of 450 frames at 640 x 360, 30 fps),
+    decoded by `iter_sampled_frames_parallel` on threads into
+    `extract_features`: decode-only, end-to-end decoded frames/s and the
+    share of the stream spent waiting on decode."""
+    try:
+        import cv2
+    except ImportError as e:
+        log("decode leg (9d) not run: cv2 does not import on this host (%s)"
+            % e)
+        return None
+    import numpy as np
+    from fancyrec_tpu_torch.preprocess import videos
+    from fancyrec_tpu_torch.preprocess.features import extract_features
+
+    root = os.path.join(work, "videos")
+    w, h = DECODE_SIZE
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.zeros((h, w, 3), np.uint8)
+    base[..., 0] = (xx * 255 // w).astype(np.uint8)
+    base[..., 1] = (yy * 255 // h).astype(np.uint8)
+    for v in range(N_DECODE_VIDEOS):
+        d = os.path.join(root, "brand%02d" % (v % 4))
+        os.makedirs(d, exist_ok=True)
+        vw = cv2.VideoWriter(os.path.join(d, "vid%03d.mp4" % v),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        if not vw.isOpened():
+            fail("the mp4v codec is unavailable to cv2")
+        frame = base.copy()
+        frame[..., 2] = (v * 37) % 255
+        for i in range(DECODE_FRAMES):
+            vw.write(np.roll(frame, i * 3, axis=1))
+        vw.release()
+    brands = sorted(os.listdir(root))
+    decoded = N_DECODE_VIDEOS * DECODE_FRAMES
+    t0 = time.perf_counter()
+    sampled = sum(1 for _ in videos.iter_sampled_frames(root, brands))
+    decode_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    n = extract_features(
+        videos.iter_sampled_frames_parallel(root, brands,
+                                            workers=DECODE_WORKERS,
+                                            backend="thread"),
+        os.path.join(work, "decoded"), batch_size=B_EXTRACT, params=state,
+        stats=stats, device=dev)
+    wall = time.perf_counter() - t0
+    if n != sampled:
+        fail("decode leg: %d rows written of %d sampled frames"
+             % (n, sampled))
+    stream_s = stats["wait_s"] + stats["compute_s"] + stats["write_s"]
+    rec = {"decoded_frames": decoded, "sampled_frames": sampled,
+           "decode_only_fps": decoded / decode_s,
+           "e2e_decoded_fps": decoded / stream_s,
+           "e2e_decoded_fps_wall": decoded / wall,
+           "wait_share": stats["wait_s"] / stream_s}
+    log("decode leg: %d mp4s of %d frames at %d x %d, %d sampled; serial "
+        "decode %.1f frames/s; decode (%d threads) -> extract -> BigFile "
+        "%.1f decoded frames/s streaming (%.1f with the extractor's "
+        "build), waiting on decode %.3f of the stream"
+        % (N_DECODE_VIDEOS, DECODE_FRAMES, w, h, sampled,
+           rec["decode_only_fps"], DECODE_WORKERS, rec["e2e_decoded_fps"],
+           rec["e2e_decoded_fps_wall"], rec["wait_share"]))
+    return rec
+
+
+def preprocessing_path(work, dev):
+    """Phase 9: offline preprocessing, the ResNet-152 extractor (bf16,
+    channels-last, random weights from a seed) and the decode -> extract
+    -> BigFile pipeline on the card."""
+    import torch
+    from fancyrec_tpu_torch.models.resnet import init_random_params
+
+    t0 = time.time()
+    state = init_random_params(seed=SEED)
+    rec = {"errors": resnet_card_vs_cpu(state, dev)}
+    torch.cuda.empty_cache()
+    rec["throughput"] = resnet_throughput(state, dev)
+    torch.cuda.empty_cache()
+    rec["stream"] = extraction_path(work, state, dev)
+    torch.cuda.empty_cache()
+    rec["decode"] = decode_path(work, state, dev)
+    rec["errors"] = {"%s_%s" % (k[0], "s2d" if k[1] else "plain"): v
+                     for k, v in rec["errors"].items()}
+    log("preprocessing phase in %.1f s: %s"
+        % (time.time() - t0, json.dumps(rec)))
+    return rec
+
+
 def main():
     try:
         import torch
@@ -2729,10 +3064,7 @@ def main():
         fail("fancyrec_tpu_torch imported from outside this checkout")
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = smi_name_power()
     dev = resolve_device("cuda")
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
@@ -2818,6 +3150,13 @@ def main():
         tester_path(root, dev, "fast")
         # 8. a checkpoint the JAX package wrote, on the card
         frtpu1_card(dev)
+        torch.cuda.empty_cache()
+        # 9. offline preprocessing: the ResNet-152 extractor and the
+        # decode -> extract -> BigFile pipeline (cuDNN convolutions; none
+        # of the six kernels is on this path, so its counts stay 0)
+        zero_counts()
+        preprocessing_path(os.path.join(work, "preprocess"), dev)
+        log("preprocessing path launches: %s" % read_counts())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "

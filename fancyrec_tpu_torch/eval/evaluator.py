@@ -22,6 +22,7 @@ from fancyrec_tpu_torch.data.loader import bucket_batch, prefetch_to_device
 from fancyrec_tpu_torch.eval.metrics import RankingMetrics, ranking_metrics
 from fancyrec_tpu_torch.models.encoders import TextBatch, VisualBatch
 from fancyrec_tpu_torch.ops.similarity import cosine_scores
+from fancyrec_tpu_torch.utils.meters import Progress
 
 # model-input keys of a batch dict; the rest (idxs, n_valid) is host-side
 # scatter bookkeeping that never reaches the device
@@ -68,6 +69,7 @@ def encode_data(model, loader, common_dim: int, device: torch.device,
     n = len(loader.dataset)
     post_embs = np.zeros((n, common_dim), np.float32)
     brands = np.zeros(n, np.int32)
+    progress = Progress(n, label="encode")
 
     def stage(batch):
         if token_buckets or frame_buckets:
@@ -80,6 +82,7 @@ def encode_data(model, loader, common_dim: int, device: torch.device,
         # padding rows repeat the last item and write identical values
         post_embs[batch["idxs"]] = embs
         brands[batch["idxs"]] = batch["brand_ids"]
+        progress.add(batch["n_valid"])
     return brands, post_embs
 
 

@@ -6,6 +6,8 @@ port's state dict. The port names its modules after the JAX tree, so each
 leaf's path maps onto a state-dict key; only layouts change:
   * flax Dense kernels (in, out) -> torch Linear weights (out, in);
   * flax Conv kernels (ws, D, K) -> torch Conv1d weights (K, D, ws);
+  * flax 2-D Conv kernels (kh, kw, I, O) -> torch Conv2d weights
+    (O, I, kh, kw) (the ResNet-152 extractor);
   * LayerNorm/BatchNorm `scale` -> `weight`;
   * BatchNorm running stats `batch_stats/.../mean|var` ->
     `running_mean|running_var` buffers;
@@ -42,6 +44,8 @@ def _param_entry(path: str, value: np.ndarray):
             return head + ".weight", value.T
         if value.ndim == 3:
             return head + ".weight", value.transpose(2, 1, 0)
+        if value.ndim == 4:
+            return head + ".weight", value.transpose(3, 2, 0, 1)
         raise ValueError("unexpected kernel rank at %s: %s"
                          % (path, value.shape))
     if leaf == "scale":
@@ -78,7 +82,8 @@ def torch_state_from_jax(params: Mapping, batch_stats: Mapping = None
 
 def load_jax_variables(model: nn.Module, params: Mapping,
                        batch_stats: Mapping = None) -> nn.Module:
-    """Fill `model` (a port FancyRec) from the JAX package's variables.
+    """Fill `model` (a port FancyRec or ResNetFeatures) from the JAX
+    package's variables.
 
     Strict: every port parameter and buffer must be covered and every JAX
     leaf must land, with matching shapes."""

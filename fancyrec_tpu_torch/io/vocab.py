@@ -73,6 +73,16 @@ def save_vocab(vocab: Vocabulary, path: str) -> None:
         pickle.dump(vocab, f, pickle.HIGHEST_PROTOCOL)
 
 
+def captions_from_txt(cap_file: str) -> List[str]:
+    """Read 'capid caption...' lines -> list of caption strings."""
+    captions = []
+    with open(cap_file, "r") as reader:
+        for line in reader:
+            _, caption = line.split(" ", 1)
+            captions.append(caption.strip())
+    return captions
+
+
 def build_vocab(captions: Iterable[str], text_style: str, threshold: int = 5):
     """Count clean_str tokens, keep those with freq >= threshold.
 
@@ -127,3 +137,10 @@ class Bow2Vec:
             return vec / np.linalg.norm(vec, 2)
         return vec
 
+
+def get_text_encoder(name: str):
+    encoders = {"bow": Bow2Vec}
+    if name not in encoders:
+        raise ValueError("unknown text encoder %r (%s)"
+                         % (name, ", ".join(encoders)))
+    return encoders[name]

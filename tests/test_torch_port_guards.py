@@ -51,7 +51,17 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "fancyrec_tpu_torch/models/torch_import.py",
             "fancyrec_tpu_torch/serving/ivf.py",
             "fancyrec_tpu_torch/serving/export.py",
-            "fancyrec_tpu_torch/utils/tb_events.py"} <= scanned
+            "fancyrec_tpu_torch/utils/tb_events.py",
+            "fancyrec_tpu_torch/utils/meters.py",
+            "fancyrec_tpu_torch/models/resnet.py",
+            "fancyrec_tpu_torch/io/format_check.py",
+            "fancyrec_tpu_torch/preprocess/features.py",
+            "fancyrec_tpu_torch/preprocess/txt2bin.py",
+            "fancyrec_tpu_torch/preprocess/frameinfo.py",
+            "fancyrec_tpu_torch/preprocess/captions.py",
+            "fancyrec_tpu_torch/preprocess/videos.py",
+            "fancyrec_tpu_torch/preprocess/vocab_cli.py",
+            "fancyrec_tpu_torch/preprocess/pipeline.py"} <= scanned
     bad = ["%s:%d imports %s" % (f.relative_to(ROOT), line, mod)
            for f in files for line, mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -66,6 +76,8 @@ def no_cuda(monkeypatch):
 def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
     from fancyrec_tpu_torch.device import resolve_device
     from fancyrec_tpu_torch.eval import tester
+    from fancyrec_tpu_torch.models import resnet
+    from fancyrec_tpu_torch.preprocess import features, pipeline
     from fancyrec_tpu_torch.serving import export, index, ivf, server
     from fancyrec_tpu_torch.train import trainer
 
@@ -104,7 +116,19 @@ def test_entry_points_refuse_cuda_without_a_gpu(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tester.main(["test", "--rootpath", str(tmp_path),
                          "--logger_name", str(tmp_path)] + dev)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resnet.make_extractor({})
+    frames = iter([("video1_0_cls0", torch.zeros(8, 8, 3).numpy())])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        features.extract_features(frames, str(tmp_path / "feats"))
+    (tmp_path / "scrape" / "audi").mkdir(parents=True)
+    for dev in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pipeline.main([str(tmp_path / "scrape"), str(tmp_path / "pp")]
+                          + dev)
     assert not (tmp_path / "model").exists()      # refused before any write
+    assert not (tmp_path / "feats").exists()
+    assert not (tmp_path / "pp").exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
