@@ -80,10 +80,28 @@ Phases:
      4,096 synthetic frames into a BigFile (one batch's rows bit for bit
      the extractor's, frameinfo and format_check pass); (d) where cv2
      imports, the JAX package's bench_preprocess videos decoded on threads
-     into `extract_features`.
+     into `extract_features`;
+  10. data parallelism (--mesh_shape R,1), on phase 5's tree: (a) the
+     trainer's BigFile readers gather natively (g++ is on the card's host;
+     the phase fails otherwise), and the host side of one recipe epoch
+     timed with the native gather and the memmap; (b) K1-fwd, K1-bwd and K2
+     at a rank's batch (B=4, full width) and K4 at a rank's post shard
+     against their plain versions; (c) the trainer CLI for one recipe epoch
+     outside a world and in a world of one over NCCL, each in a process of
+     its own: the first update and the checkpoint equal bit for bit; (d)
+     the same recipe over two ranks sharing the card (gloo): the first
+     update within phase 5's tolerances of (c)'s one-process update of the
+     same global batch, and each rank launches K1-fwd, K1-bwd, K2-fwd,
+     K2-bwd and K4; (e) the tester CLI over two ranks on (d)'s checkpoint:
+     its eight metrics equal the one-process tester's. The phase's trainer
+     runs have every dropout off and deterministic algorithms on; each
+     rank prints its ms per update, device peak and launches.
 The kernels' launch counts are zeroed just before each of the seven paths
 (4, 4b, 4d, 5c, 6, 7's trainer and 7's tester) and read just after: each
 kernel must have run on its path (K1-fwd on 4 and 4d, K3 on 4 and 4b).
+Phase 10's ranks zero and read their own counts around their CLI's main;
+its records (K1, K2 at B=4, K4 at a shard) count the launches summed over
+the ranks of 10d (training) and 10e (evaluation).
 Phase 9 runs cuDNN's convolutions and none of the six kernels: its counts
 are printed, not required.
 
@@ -3044,6 +3062,482 @@ def preprocessing_path(work, dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism across ranks
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2                  # ranks of the data-parallel world on one card
+B_RANK = B_TRAIN // DP_RANKS  # each rank's rows of a recipe microbatch
+DP_TIMEOUT = 420              # seconds a world of ranks may take
+
+# One rank of a phase-10 run, started as `python -c _RANK_MAIN HERE mode out
+# argv`: the trainer (mode "train") or the tester ("test") CLI through its
+# main. Instruments, none of them in the program: deterministic algorithms
+# (so that two runs of the same update can agree bit for bit), the brand
+# dropout off (the tower dropouts are off by flag: each rank draws its own
+# masks, so only dropout-free updates can match across world sizes), rank
+# 0's first update written to `out`.first.pt, and a RANK_RESULT line with
+# this rank's kernel launches, engine, times and device peak; the tester's
+# encoded posts and brands written to `out`.enc.<rank>.npz.
+_RANK_MAIN = r"""
+import json, os, sys, time
+here, mode, out, argv = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(
+    sys.argv[4])
+sys.path.insert(0, here)
+import numpy as np
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+import chip_smoke
+from fancyrec_tpu_torch.models import brand
+from fancyrec_tpu_torch.parallel import collectives
+from fancyrec_tpu_torch.eval import tester
+from fancyrec_tpu_torch.train import trainer
+_init = brand.BrandAspects.__init__
+def _no_brand_dropout(self, *a, **k):
+    _init(self, *a, **k)
+    self.p = 0.0
+brand.BrandAspects.__init__ = _no_brand_dropout
+seen = {"dump_s": 0.0}
+_step, _epoch, _datasets = (trainer.train_step, trainer.train_epoch,
+                            trainer.build_datasets)
+def first_update(model, opt, cfg, state, sb):
+    state, metrics = _step(model, opt, cfg, state, sb)
+    if "loss" not in seen:
+        t0 = time.time()
+        seen.update(loss=float(metrics["loss"]),
+                    grad_norm=float(metrics["grad_norm"]))
+        if collectives.rank() == 0:
+            torch.save({
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()},
+                "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                "buffers": {n: b.cpu() for n, b in model.named_buffers()},
+                "queue": state.queue.queue.cpu()}, out + ".first.pt")
+        seen["dump_s"] = time.time() - t0
+    return state, metrics
+def epoch(*a, **k):
+    state, stats = _epoch(*a, **k)
+    seen["stats"] = stats
+    return state, stats
+def datasets(cfg):
+    ds = _datasets(cfg)
+    seen["engines"] = sorted({r.engine for d in ds.values()
+                              for r in (d.video_feat, d.img_feat)})
+    return ds
+trainer.train_step, trainer.train_epoch = first_update, epoch
+trainer.build_datasets = datasets
+chip_smoke.zero_counts()
+t0 = time.time()
+_ranking = tester.test_post_ranking
+def ranking(model, brand_num, post_embs, brands, device):
+    # what the sharded encode left on this rank: every post's embedding
+    np.savez("%s.enc.%d.npz" % (out, collectives.rank()),
+             post_embs=post_embs, brands=brands)
+    return _ranking(model, brand_num, post_embs, brands, device)
+if mode == "train":
+    got = trainer.main(argv)
+else:
+    tester.test_post_ranking = ranking
+    got = tester.main(argv)._asdict()
+    # the exact sharded metrics on the card over a score matrix with ties
+    # and pad posts, each rank its contiguous shard of the columns
+    from fancyrec_tpu_torch.eval.metrics import ranking_metrics_sharded
+    scores, labels = chip_smoke.tie_scores()
+    n_l = scores.shape[1] // collectives.world_size()
+    cols = slice(collectives.rank() * n_l, (collectives.rank() + 1) * n_l)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    seen["sharded"] = ranking_metrics_sharded(
+        torch.from_numpy(scores[:, cols]).to(dev), labels[cols],
+        scores.shape[0])._asdict()
+wall = time.time() - t0
+stats = seen.pop("stats", None)
+res = {"rank": collectives.rank(), "world": collectives.world_size(),
+       "backend": (torch.distributed.get_backend()
+                   if torch.distributed.is_initialized() else None),
+       "device": (str(torch.cuda.current_device())
+                  if torch.cuda.is_available() else "cpu"), "result": got,
+       "wall_s": wall, "counts": chip_smoke.read_counts(),
+       "peak_bytes": (torch.cuda.max_memory_allocated()
+                      if torch.cuda.is_available() else 0), **seen}
+if stats:
+    res.update(updates=len(stats["losses"]), train_s=stats["seconds"],
+               ms_per_update=1e3 * (stats["seconds"] - seen["dump_s"])
+               / max(len(stats["losses"]), 1))
+print("RANK_RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def tie_scores():
+    """A seeded (51, 818) score matrix with exact ties (two decimals) and
+    labels where brand 50 has no post and the last 2 posts are pads (-1):
+    what 10e's ranks rank with ranking_metrics_sharded, against the
+    oracle here."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 13)
+    scores = np.round(rng.randn(51, 818), 2).astype(np.float32)
+    labels = rng.randint(0, 50, 818).astype(np.int64)
+    labels[-2:] = -1
+    return scores, labels
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(mode, out, argv, ranks):
+    """`ranks` processes of _RANK_MAIN on this card -> their RANK_RESULT
+    records by rank. ranks=0: one process outside any world (no
+    WORLD_SIZE); else a world of `ranks` (MASTER_ADDR localhost, a free
+    port). Every process is killed and the phase fails if one exits
+    non-zero or the world outlives DP_TIMEOUT."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=HERE, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    if ranks:
+        env.update(WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    if ranks > 1:
+        # the host's cores split between the ranks, as torchrun does: host
+        # threads that spin while another rank holds the cores slow the
+        # collectives down
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // ranks))
+    procs = []
+    for r in range(max(ranks, 1)):
+        renv = dict(env, RANK=str(r), LOCAL_RANK=str(r)) if ranks else env
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_MAIN, HERE, mode, out,
+             json.dumps(argv)], env=renv, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs, deadline = [], time.time() + DP_TIMEOUT
+    try:
+        for p in procs:
+            left = max(1, deadline - time.time())
+            outs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        fail("%s over %d rank(s) did not finish in %d s" % (mode, ranks,
+                                                            DP_TIMEOUT))
+    results = {}
+    for p, text in zip(procs, outs):
+        if p.returncode != 0:
+            fail("a %s rank exited %d:\n%s" % (mode, p.returncode,
+                                               text[-4000:]))
+        for line in text.splitlines():
+            if line.startswith("RANK_RESULT "):
+                r = json.loads(line[len("RANK_RESULT "):])
+                results[r["rank"]] = r
+    if sorted(results) != list(range(max(ranks, 1))):
+        fail("%s: missing rank results:\n%s" % (mode, outs[0][-4000:]))
+    return [results[r] for r in sorted(results)]
+
+
+def host_data_time(root, dev):
+    """10a: the recipe trainer's BigFile readers must gather natively; the
+    host side of one recipe epoch (the train loader's gathers and the
+    stacking into super-batches of 8 x 8, as the trainer's prefetch thread
+    runs them) timed with the native gather and with the memmap, in turns
+    native, memmap, memmap, native after a warm-up pass."""
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.data.loader import BatchLoader
+    from fancyrec_tpu_torch.train import trainer
+
+    cfg = config_from_args(build_train_parser().parse_args(
+        instance_args(root, "host_data", 1)))
+    train = trainer.build_datasets(cfg)["train"]
+    cfg.finalize()
+    readers = (train.video_feat, train.img_feat)
+    engines = [r.engine for r in readers]
+    log("10a: the trainer's train readers gather with %s" % engines)
+    if engines != ["native", "native"]:
+        fail("the trainer's BigFile readers do not use the native gather "
+             "(%s): this host has g++" % engines)
+    natives = [r._native for r in readers]
+
+    def epoch(native):
+        for r, gather in zip(readers, natives):
+            r._native = gather if native else None
+        loader = BatchLoader(train, B_TRAIN, shuffle=True, seed=cfg.seed)
+        t0 = time.perf_counter()
+        count = sum(1 for _ in trainer._superbatches(loader, ACCUM))
+        return time.perf_counter() - t0, count
+
+    epoch(True)
+    times = {"native": [], "memmap": []}
+    for native in (True, False, False, True):
+        dt, n = epoch(native)
+        times["native" if native else "memmap"].append(dt)
+    for r, gather in zip(readers, natives):
+        r._native = gather
+    rec = {k: statistics.mean(v) for k, v in times.items()}
+    log("10a: host data time of one recipe epoch (%d super-batches of %d x "
+        "%d posts, %d-d frames): native gather %.4f s (%s), memmap %.4f s "
+        "(%s)" % (n, ACCUM, B_TRAIN, D_IN, rec["native"],
+                  ", ".join("%.4f" % t for t in times["native"]),
+                  rec["memmap"],
+                  ", ".join("%.4f" % t for t in times["memmap"])))
+    return rec
+
+
+def k4_shard_record(dev):
+    """K4 at a rank's shard of the test split's posts (51 x N_EVAL / 2 x
+    1024): kernel vs plain, timed beside cuBLAS's one-call cosine."""
+    import torch
+    import torch.nn.functional as F
+    from fancyrec_tpu_torch.ops.similarity import (
+        cosine_scores_cuda, cosine_scores_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    n = N_EVAL // DP_RANKS
+    brands, posts = _cosine_case(g, dev, N_BRANDS, n, DIM)
+    with torch.no_grad():
+        err = _cosine_err(cosine_scores_cuda(brands, posts),
+                          cosine_scores_ref(brands, posts))
+        if not err <= K4_TOL:
+            fail("cosine_scores at a rank's shard disagrees with its plain "
+                 "version: %.3g > %g" % (err, K4_TOL))
+        rec = {"name": "cosine_scores_shard", "counter": "cosine_scores",
+               "route": "cuda",
+               "source": "fancyrec_tpu_torch/csrc/cosine_scores.cu",
+               "replaces": "fancyrec_tpu/ops/similarity.py:108",
+               "max_abs_err": err,
+               "ms": statistics.median(cuda_ms(lambda: cosine_scores_cuda(
+                   brands, posts), 50) for _ in range(3)),
+               "plain_ms": cuda_ms(lambda: cosine_scores_ref(brands, posts),
+                                   20),
+               "library_ms": statistics.median(cuda_ms(
+                   lambda: F.normalize(brands) @ F.normalize(posts).T, 50)
+                   for _ in range(3)),
+               "path": "data-parallel evaluation",
+               **roofline(4 * (N_BRANDS * DIM + n * DIM + N_BRANDS * n),
+                          2 * N_BRANDS * n * DIM, F32_FLOPS)}
+    log("10b: cosine_scores %d x %d x %d (a rank's shard): kernel %.4f ms, "
+        "plain %.4f ms, cuBLAS %.4f ms, bound %.4f ms (%s); max err %.3g"
+        % (N_BRANDS, n, DIM, rec["ms"], rec["plain_ms"], rec["library_ms"],
+           rec["bound_ms"], rec["bound_by"], err))
+    return rec
+
+
+def _states_equal(a, b):
+    """Tensors of two dumps bit for bit -> the names that differ."""
+    import torch
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def data_parallel_path(root, dev, sass):
+    """Phase 10: data parallelism, --mesh_shape R,1.
+      a. the native gather is in use; host data time native vs memmap;
+      b. K1-fwd, K1-bwd and K2 at a rank's batch (B=4, full width) and K4
+         at a rank's post shard, against their plain versions;
+      c. the trainer CLI for one recipe epoch outside a world and in a
+         world of one over NCCL: the first update and the checkpoint equal
+         bit for bit;
+      d. the same recipe over two ranks sharing the card (gloo) at
+         --mesh_shape 2,1: its first update within phase 5's card
+         tolerances of c's one-process update of the same global batch;
+         each rank launches K1-fwd, K1-bwd, K2-fwd, K2-bwd and K4;
+      e. the tester CLI over two ranks on d's checkpoint: each rank's
+         encoded posts (all of them, after the sharded encode's gather and
+         scatter) equal the one-process tester's within ENC_TOL, and its
+         eight metrics equal the one-process tester's on the same
+         checkpoint; and the ranks' ranking_metrics_sharded over a score
+         matrix with ties and pad posts equals the oracle exactly.
+    Every trainer run has the dropouts off (each rank draws its own masks)
+    and deterministic algorithms on. -> {"records", "train_counts",
+    "eval_counts"}, the counts summed over d's and e's ranks."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.eval import tester
+    from fancyrec_tpu_torch.eval.metrics import ranking_metrics_oracle
+    from fancyrec_tpu_torch.train import checkpoints
+
+    t_phase = time.time()
+    data_time = host_data_time(root, dev)
+    records = k1_records(dev, B_RANK, torch.float32, True, SEED + 11)
+    records += check_aspect_dropout(dev, B_RANK, sass)[0]
+    for r in records:
+        r["path"] = "data-parallel training"
+    records.append(k4_shard_record(dev))
+    torch.cuda.empty_cache()
+
+    flags = ["--dropout", "0", "--bert_dropout", "0", "--device", str(dev)]
+    runs = {}
+    for name, ranks, extra in (("one", 0, []), ("world1", 1, []),
+                               ("dp2", DP_RANKS, ["--mesh_shape", "%d,1"
+                                                  % DP_RANKS])):
+        out = os.path.join(root, "dp_" + name)
+        runs[name] = run_ranks("train", out, instance_args(
+            root, "dp_" + name, 1) + flags + extra, ranks)
+        for r in runs[name]:
+            log("10%s: %s rank %d/%d (%s, device %s): %d updates, %.1f ms per "
+                "update (the first update's dump excluded), device peak %.2f "
+                "GB, %.1f s wall; first update loss %.6f, grad norm %.6f; "
+                "engines %s; launches %s"
+                % ("c" if ranks < 2 else "d", name, r["rank"], r["world"],
+                   r["backend"], r["device"], r["updates"], r["ms_per_update"],
+                   r["peak_bytes"] / 1e9, r["wall_s"], r["loss"],
+                   r["grad_norm"], r["engines"], r["counts"]))
+            if r["engines"] != ["native"]:
+                fail("a rank gathered with %s, not the native gather"
+                     % r["engines"])
+    if not (runs["world1"][0]["world"] == 1
+            and runs["world1"][0]["backend"] == (
+                "nccl" if dev.type == "cuda" else "gloo")):
+        fail("10c did not run in a world of one over NCCL: %s"
+             % runs["world1"][0])
+    if [r["backend"] for r in runs["dp2"]] != ["gloo"] * DP_RANKS:
+        fail("10d's ranks share a card and must use gloo: %s"
+             % [r["backend"] for r in runs["dp2"]])
+    first = {k: torch.load(os.path.join(root, "dp_%s.first.pt" % k))
+             for k in runs}
+
+    # c. a world of one: bit for bit
+    diff = {part: _states_equal(first["one"][part], first["world1"][part])
+            for part in ("params", "grads", "buffers")}
+    diff["queue"] = not torch.equal(first["one"]["queue"],
+                                    first["world1"]["queue"])
+    ckpt = {k: checkpoints.load_checkpoint(os.path.join(
+        root, "model", "dp_" + k, "model_best.pth.tar"))
+        for k in ("one", "world1")}
+    diff["checkpoint"] = _states_equal(ckpt["one"]["state_dict"],
+                                       ckpt["world1"]["state_dict"])
+    opt_a, opt_b = (c["optimizer"]["state"] for c in ckpt.values())
+    diff["optimizer"] = [k for k in opt_a if any(
+        not torch.equal(opt_a[k][m], opt_b[k][m]) for m in opt_a[k])]
+    log("10c: world of one over NCCL vs no world: first update and "
+        "checkpoint differ in %s" % ({k: v for k, v in diff.items() if v}
+                                     or "nothing (bit for bit)"))
+    if any(diff.values()):
+        fail("a world of one gives another update than no world: %s" % diff)
+    if runs["one"][0]["result"] != runs["world1"][0]["result"]:
+        fail("10c: best %r in a world of one vs %r without"
+             % (runs["world1"][0]["result"], runs["one"][0]["result"]))
+
+    # d. two ranks against one process, the same global batch
+    one, dp = first["one"], first["dp2"]
+    l_one, l_dp = runs["one"][0]["loss"], runs["dp2"][0]["loss"]
+    top = max(g.abs().max().item() for g in one["grads"].values())
+    rel = {n: (dp["grads"][n] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-4 * top)
+           for n, g in one["grads"].items()}
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    p_err = max((dp["params"][n] - p).abs().max().item()
+                for n, p in one["params"].items())
+    b_err = max((dp["buffers"][n] - b).abs().max().item()
+                for n, b in one["buffers"].items())
+    q_err = (dp["queue"] - one["queue"]).abs().max().item()
+    flips = sum(int(((dp["params"][n] - p).abs() > LR / 2).sum())
+                for n, p in one["params"].items())
+    log("10d: %d ranks vs one process, first update: loss %.3g apart; grads "
+        "max |diff| / max |grad| per tensor %.3g (tolerance %g; worst %s); "
+        "params max |diff| %.3g, %d values moved apart by more than lr/2 "
+        "(tolerance %g); BN statistics %.3g, queue %.3g apart"
+        % (DP_RANKS, abs(l_dp - l_one), rel[worst[0]], STEP_TOL,
+           ", ".join("%s %.3g" % (n, rel[n]) for n in worst), p_err, flips,
+           2 * LR * 1.001, b_err, q_err))
+    if not (abs(l_dp - l_one) <= STEP_TOL * max(1.0, abs(l_one))
+            and rel[worst[0]] <= STEP_TOL and p_err <= 2 * LR * 1.001
+            and b_err <= STEP_TOL and q_err <= STEP_TOL):
+        fail("the %d-rank update disagrees with the one-process update"
+             % DP_RANKS)
+    bests = [r["result"] for r in runs["dp2"]]
+    if len(set(bests)) != 1:
+        fail("the ranks report different bests: %s" % bests)
+    micro = runs["dp2"][0]["updates"] * ACCUM
+    for r in runs["dp2"]:
+        c = r["counts"]
+        if not (c["gru_scan"] >= micro and c["gru_scan_bwd"] == micro
+                and c["aspect_dropout_fwd"] == micro
+                and c["aspect_dropout_bwd"] == micro
+                and c["cosine_scores"] == 1):
+            fail("rank %d launched %s for %d microbatches and one "
+                 "validation" % (r["rank"], c, micro))
+    del first, one, dp, ckpt
+
+    # e. the tester over two ranks and in this process, d's checkpoint
+    logdir = os.path.join(root, "model", "dp_dp2")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
+             "1"]
+    tested = run_ranks("test", os.path.join(root, "dp_test"),
+                       targv + ["--mesh_shape", "%d,1" % DP_RANKS], DP_RANKS)
+    seen = {}
+    ranking = tester.test_post_ranking
+
+    def record(model, brand_num, post_embs, brands, device):
+        seen.update(post_embs=post_embs, brands=brands)
+        return ranking(model, brand_num, post_embs, brands, device)
+
+    tester.test_post_ranking = record
+    try:
+        t0 = time.time()
+        single = tester.main(targv)._asdict()
+        single_s = time.time() - t0
+    finally:
+        tester.test_post_ranking = ranking
+    # the sharded encode against the one-process encode: every rank holds
+    # every post's embedding, at its post
+    for r in tested:
+        enc = np.load(os.path.join(root, "dp_test.enc.%d.npz" % r["rank"]))
+        err = float(np.abs(enc["post_embs"] - seen["post_embs"]).max())
+        log("10e: tester rank %d's encoded posts vs one process's: brands "
+            "%s, embeddings max |diff| %.3g (tolerance atol %g rtol %g)"
+            % (r["rank"], "equal" if np.array_equal(
+                enc["brands"], seen["brands"]) else "DIFFER", err,
+               ENC_TOL["atol"], ENC_TOL["rtol"]))
+        if not np.array_equal(enc["brands"], seen["brands"]):
+            fail("tester rank %d scattered the brands to other posts"
+                 % r["rank"])
+        np.testing.assert_allclose(enc["post_embs"], seen["post_embs"],
+                                   **ENC_TOL)
+    for r in tested:
+        log("10e: tester rank %d/%d: %.2f s wall, device peak %.2f GB; %s; "
+            "launches %s" % (r["rank"], r["world"], r["wall_s"],
+                             r["peak_bytes"] / 1e9, r["result"], r["counts"]))
+        if not all(r["counts"][k] >= 1 for k in ("gru_scan", "cosine_scores")):
+            fail("tester rank %d launched %s" % (r["rank"], r["counts"]))
+    rank_keys, score_keys = ("medr", "meanr", "r1", "r5", "r10"), (
+        "auc", "ndcg10", "ndcg50")
+    got = tested[0]["result"]
+    diff = max(abs(got[k] - single[k]) for k in score_keys)
+    log("10e: the one-process tester on the same checkpoint: %.2f s wall; "
+        "%s; rank metrics %s, AUC/NDCG max |diff| %.3g (tolerance 1e-6)"
+        % (single_s, single, "equal" if all(got[k] == single[k]
+                                            for k in rank_keys) else "DIFFER",
+           diff))
+    if tested[1]["result"] != got:
+        fail("the tester's ranks report different metrics")
+    scores, labels = tie_scores()
+    live = labels >= 0
+    want = {k: float(v) for k, v in ranking_metrics_oracle(
+        scores[:, live], labels[live], scores.shape[0])._asdict().items()}
+    log("10e: ranking_metrics_sharded over %d ranks on the card, %d x %d "
+        "scores with ties and 2 pad posts: %s the oracle's %s"
+        % (DP_RANKS, scores.shape[0], scores.shape[1],
+           "equal to" if all(r["sharded"] == want for r in tested)
+           else "DIFFERENT from", want))
+    if not all(r["sharded"] == want for r in tested):
+        fail("the sharded metrics %s differ from the oracle's %s"
+             % ([r["sharded"] for r in tested], want))
+    if not (all(got[k] == single[k] for k in rank_keys) and diff <= 1e-6
+            and all(math.isfinite(v) for v in got.values())):
+        fail("the %d-rank tester's metrics %s differ from one process's %s"
+             % (DP_RANKS, got, single))
+    sums = lambda rs: {k: sum(r["counts"][k] for r in rs)  # noqa: E731
+                       for k in rs[0]["counts"]}
+    log("data-parallel phase in %.1f s; host data time %s"
+        % (time.time() - t_phase, json.dumps(data_time)))
+    return {"records": records, "train_counts": sums(runs["dp2"]),
+            "eval_counts": sums(tested)}
+
+
 def main():
     try:
         import torch
@@ -3157,6 +3651,12 @@ def main():
         zero_counts()
         preprocessing_path(os.path.join(work, "preprocess"), dev)
         log("preprocessing path launches: %s" % read_counts())
+        torch.cuda.empty_cache()
+        # 10. data parallelism: the native gather, the kernels at a rank's
+        # shapes, the trainer in a world of one and of two ranks, the
+        # tester over two ranks (each rank counts its own launches)
+        dp = data_parallel_path(root, dev, sass)
+        kernels += dp["records"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
@@ -3164,7 +3664,9 @@ def main():
         % (B_TRAIN, fwd_b8["ms"], fwd_b8["library_ms"], training["gru_scan"]))
     paths = {"serving": serving, "training": training,
              "evaluation": evaluation, "fast training": fast,
-             "IVF serving": ivf_serving, "artifact": artifact}
+             "IVF serving": ivf_serving, "artifact": artifact,
+             "data-parallel training": dp["train_counts"],
+             "data-parallel evaluation": dp["eval_counts"]}
     # K1-fwd also runs inside the exported programs, K3 on the IVF path's
     # exact single-brand queries: their records count those launches too
     home = {"gru_scan": "serving+artifact", "topk_int8": "serving+IVF serving",

@@ -11,5 +11,7 @@ kernel wrappers run their plain PyTorch versions.
 Ported so far: the serving path -- index build (post encoding through the
 full FancyRec towers), the int8 top-k, and the HTTP service -- and the
 training path: the trainer CLI (`fancyrec_tpu_torch.train.trainer`), its
-losses, train step, ranking metrics and checkpoints.
+losses, train step, ranking metrics and checkpoints; evaluation, offline
+preprocessing, and data parallelism over a world of processes
+(`parallel/`); the host's native row gather (`io/native.py`).
 """

@@ -1,10 +1,12 @@
 """Typed configuration, field for field the JAX package's `Config`.
 
 The same dataclass and the same JSON form as `fancyrec_tpu.config`, so a
-config written by either package loads in the other. The fields that
-only steer JAX (meshes, pipelining, the XLA compile cache, the dropout
-PRNG) are kept for that interchange and are not read by the port; the
-training CLI refuses them at any value but their default.
+config written by either package loads in the other. `mesh_shape` lays
+the ranks of a world on the data axis (`parallel/mesh.py`); the fields the
+port does not implement yet (a model axis, sequence sharding, pipelining)
+or that only steer JAX (the XLA compile cache, the dropout PRNG) are kept
+for that interchange, and the training CLI refuses them at any value but
+their default.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import json
 import os
 from dataclasses import dataclass, field
 from typing import List
+
+from fancyrec_tpu_torch.parallel.mesh import parse_mesh_shape
 
 ROOT_PATH = os.environ.get("FANCYREC_ROOT_PATH", os.path.expanduser("~/insCar"))
 
@@ -246,10 +250,9 @@ class Config:
                         % (self.batch_size // self.pp_stages,
                            self.batch_size, self.pp_stages, data_axis))
         if self.mesh_shape:
-            # reject silent 1/N throughput: a batch that does not divide
-            # the data mesh axis cannot shard, so shard_batch would
-            # replicate every step (correct results, all devices doing
-            # the full batch). Fail at config time instead.
+            # a batch that does not divide the data mesh axis cannot be
+            # split into equal slices, one a rank (the JAX package would
+            # replicate it on every device). Fail at config time.
             data_axis = int(str(self.mesh_shape).split(",")[0])
             if data_axis > 1 and self.batch_size % data_axis != 0:
                 raise ValueError(
@@ -420,25 +423,33 @@ def build_train_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags the port does not implement, with the value that means "off": the
-# JAX package's meshes, pipelining, sequence sharding, dropout PRNG choice
-# and XLA compile cache
-_NOT_PORTED = {"mesh_shape": "", "seq_shard": False, "rng_impl": "threefry",
-               "compilation_cache_dir": ""}
+# flags the port does not implement, with the value that means "off" and
+# why: the JAX package's sequence sharding and pipelining (later slices of
+# the port), its dropout PRNG choice and its XLA compile cache
+_NOT_PORTED = {
+    "seq_shard": (False, "sequence sharding (--seq_shard) is a later slice "
+                  "of the PyTorch port"),
+    "rng_impl": ("threefry", "--rng_impl picks a JAX PRNG; the port draws "
+                 "dropout from torch generators"),
+    "compilation_cache_dir": ("", "--compilation_cache_dir is XLA's compile "
+                              "cache; the port runs eager"),
+}
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    """The parsed flags -> Config. Raises NotImplementedError for a flag
-    that only steers the JAX package when it is set to anything but off."""
+    """The parsed flags -> Config. Raises NotImplementedError for a flag the
+    port does not implement, set to anything but off, and for a
+    --mesh_shape with a model axis above 1 (tensor parallelism)."""
     vals = vars(args)
-    for flag, off in _NOT_PORTED.items():
+    for flag, (off, why) in _NOT_PORTED.items():
         if vals.get(flag, off) != off:
             raise NotImplementedError(
-                "--%s is not implemented by the PyTorch port (got %r)"
-                % (flag, vals[flag]))
+                "--%s is not implemented by the PyTorch port (got %r): %s"
+                % (flag, vals[flag], why))
     if vals.get("pp_stages", 0) > 1:
         raise NotImplementedError(
-            "--pp_stages is not implemented by the PyTorch port (got %r)"
-            % vals["pp_stages"])
+            "--pp_stages is not implemented by the PyTorch port (got %r): "
+            "the GPipe BERT schedule is a later slice" % vals["pp_stages"])
+    parse_mesh_shape(vals.get("mesh_shape", ""))
     known = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in vals.items() if k in known})

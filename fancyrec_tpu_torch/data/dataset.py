@@ -198,17 +198,41 @@ class PostDataset:
             self._length_keys_cache = frame_lens * cap + token_lens
         return self._length_keys_cache
 
-    def gather_batch(self, indices: Sequence[int], pad_to: Optional[int] = None
-                     ) -> Dict[str, np.ndarray]:
-        """Assemble one fixed-shape batch. Optionally right-pad the batch to
-        `pad_to` rows by repeating the last item (padding rows are excluded
-        via 'n_valid')."""
+    def collate_order(self, indices: Sequence[int],
+                      pad_to: Optional[int] = None) -> list:
+        """The in-batch index order gather_batch would produce: right-pad by
+        repeating the last item, then the reference collate's stable
+        caption-length-descending sort. A process-sharded loader computes
+        this GLOBAL order (the sort keys are precomputed) and gathers only
+        its rank's slice of it."""
         indices = list(indices)
-        n_valid = len(indices)
         if pad_to is not None and len(indices) < pad_to:
             indices = indices + [indices[-1]] * (pad_to - len(indices))
-        # reference collates sort by caption length desc (stable)
         indices.sort(key=self._caption_sort_key, reverse=True)
+        return indices
+
+    def length_maxima(self, indices: Sequence[int]) -> Dict[str, int]:
+        """Max valid (frame, token) lengths over `indices`, from the
+        precomputed caches, with no feature IO: the GLOBAL batch maxima
+        that every rank of a world slices its bucket shapes by and hands
+        the model as the batch-max lengths."""
+        sel = np.asarray(list(indices))
+        flen = max(int(min(len(self.item_rows[i]), self.max_frames))
+                   for i in sel)
+        tlen = int(self._tmask_cache[sel].sum(axis=1).max())
+        return {"flen_max": flen, "tlen_max": tlen}
+
+    def gather_batch(self, indices: Sequence[int],
+                     pad_to: Optional[int] = None,
+                     presort: bool = True) -> Dict[str, np.ndarray]:
+        """Assemble one fixed-shape batch. Optionally right-pad the batch to
+        `pad_to` rows by repeating the last item (padding rows are excluded
+        via 'n_valid'). presort=False keeps the caller's order (a slice of
+        collate_order's, on a process-sharded loader)."""
+        indices = list(indices)
+        n_valid = len(indices)
+        if presort:
+            indices = self.collate_order(indices, pad_to)
         b = len(indices)
 
         # ---- visual: one vectorized gather per store ----

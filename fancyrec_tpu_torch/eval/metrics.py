@@ -1,12 +1,18 @@
 """Retrieval metrics: AUC, NDCG@10/50, MedR, MeanR, R@1/5/10.
 
-Port of fancyrec_tpu/eval/metrics.py on one device. Two implementations
-with the same semantics:
+Port of fancyrec_tpu/eval/metrics.py. Three implementations with the
+same semantics:
   * ranking_metrics_oracle: plain numpy, the reference evaluator's loop;
   * ranking_metrics: batched over brands in torch on the scores' device
     (one stable sort a brand row for AUC, one for NDCG), the final scalars
     assembled in float64 on the host, as the JAX package's sharded variant
-    does.
+    does;
+  * ranking_metrics_sharded: each rank of a world holds a contiguous
+    shard of the posts' columns, and only the posts' own-brand scores,
+    each shard's top-50 a brand and summed count vectors cross ranks --
+    never the (brands, posts) matrix. Its counts are integers and its
+    assembly repeats the oracle's float64 arithmetic, so it equals the
+    oracle exactly.
 
 Semantics kept: AUC counts strict "negative < positive" pairs; brands with
 no positive post are skipped for MedR/MeanR/AUC/NDCG but keep rank 0,
@@ -21,6 +27,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from fancyrec_tpu_torch.parallel import collectives
 
 
 class RankingMetrics(NamedTuple):
@@ -184,11 +192,12 @@ def ranking_metrics(scores: torch.Tensor, brands, brand_num: int
 
 def _assemble_metrics(valid, rank_first, auc, ndcg10, ndcg50,
                       brand_num: int) -> RankingMetrics:
-    """Per-brand numpy statistics -> RankingMetrics in float64."""
+    """Per-brand numpy statistics -> RankingMetrics in float64; means over
+    the valid brands in brand order, as the oracle's np.average."""
     vcnt = max(int(valid.sum()), 1)
     ranks = np.where(valid, rank_first, 0)   # invalid brands keep rank 0
-    mean = lambda x: float(np.sum(np.where(valid, x.astype(np.float64),  # noqa: E731
-                                           0.0)) / vcnt)
+    mean = lambda x: (float(np.mean(x[valid].astype(np.float64)))  # noqa: E731
+                      if valid.any() else 0.0)
     return RankingMetrics(
         medr=float(np.floor(np.median(rank_first[valid]))
                    if valid.any() else 0.0),
@@ -198,3 +207,153 @@ def _assemble_metrics(valid, rank_first, auc, ndcg10, ndcg50,
         r5=100.0 * int((ranks < 5).sum()) / brand_num,
         r10=100.0 * int((ranks < 10).sum()) / brand_num,
     )
+
+
+# ---------------------------------------------------------------------------
+# sharded: exact metrics over a world's post shards
+# ---------------------------------------------------------------------------
+
+def _searchsorted_rows(sorted_rows: torch.Tensor, row_ids: torch.Tensor,
+                       queries: torch.Tensor) -> torch.Tensor:
+    """For each query i: the count of entries < queries[i] in
+    sorted_rows[row_ids[i]] (a bisect_left with a row a query), as
+    ceil(log2(n + 1)) rounds of vectorized gathers, never an (N, n)
+    comparison."""
+    n = sorted_rows.shape[1]
+    flat = sorted_rows.reshape(-1)
+    base = row_ids.to(torch.int64) * n
+    lo = torch.zeros_like(base)
+    hi = torch.full_like(base, n)
+    for _ in range(max(1, n.bit_length())):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        right = flat[base + torch.clamp(mid, max=n - 1)] < queries
+        lo = torch.where(active & right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    return lo
+
+
+def _same_label_strictly_below(labels: torch.Tensor, vals: torch.Tensor
+                               ) -> torch.Tensor:
+    """For each i: the count of j with labels[j] == labels[i] and vals[j] <
+    vals[i], from one (label, value) ordering and segment arithmetic."""
+    n = vals.shape[0]
+    idx = torch.arange(n, device=vals.device)
+    by_val = torch.sort(vals, stable=True).indices
+    order = by_val[torch.sort(labels[by_val], stable=True).indices]
+    lab_s, val_s = labels[order], vals[order]
+    first = torch.ones(1, dtype=torch.bool, device=vals.device)
+    seg_start = torch.cat([first, lab_s[1:] != lab_s[:-1]])
+    pair_change = seg_start | torch.cat([first, val_s[1:] != val_s[:-1]])
+    zero = torch.zeros_like(idx)
+    seg_first = torch.cummax(torch.where(seg_start, idx, zero), 0).values
+    pair_first = torch.cummax(torch.where(pair_change, idx, zero), 0).values
+    out = torch.empty_like(idx)
+    out[order] = pair_first - seg_first
+    return out
+
+
+def _sharded_brand_stats(scores_l: torch.Tensor, brands_l: torch.Tensor,
+                         brand_num: int):
+    """This rank's (B, n_l) score shard and its posts' labels -> the
+    global per-brand integer statistics (pos_cnt, neg_cnt, auc_num,
+    rank_first) and the merged top-50 relevance (B, <= 50), the same on
+    every rank.
+
+    The only scores that can be a brand's POSITIVE are the N own-brand
+    entries score[brands[i], i], one a post: gathering those (N floats)
+    replaces gathering the matrix. A positive's count of strictly lower
+    negatives in its brand's row is the count of all strictly lower
+    entries there (a binary search in each shard's sorted rows, summed
+    over ranks) less the same-label ones (from the gathered own-brand
+    scores)."""
+    dev = scores_l.device
+    n_l = scores_l.shape[1]
+    pad_l = brands_l < 0
+    inf = torch.tensor(torch.inf, device=dev)
+    diag_l = scores_l[brands_l.clamp(0, brand_num - 1),
+                      torch.arange(n_l, device=dev)]
+    d_g = collectives.all_gather(torch.where(pad_l, -inf, diag_l))    # (N,)
+    l_g = collectives.all_gather(brands_l)                            # (N,)
+    n_total = d_g.shape[0]
+    valid_g = l_g >= 0
+    lab_g = l_g.clamp(0, brand_num - 1)
+    pos_cnt = torch.zeros(brand_num, dtype=torch.int64, device=dev
+                          ).index_add_(0, lab_g, valid_g.to(torch.int64))
+    neg_cnt = valid_g.sum() - pos_cnt
+
+    # AUC: strictly lower negatives of each positive, as integers
+    s_sorted = torch.sort(torch.where(pad_l[None, :], inf, scores_l),
+                          dim=1).values
+    below = collectives.all_reduce_sum_(
+        _searchsorted_rows(s_sorted, lab_g, d_g))
+    neg_below = torch.where(valid_g, below - _same_label_strictly_below(
+        l_g, d_g), torch.zeros_like(below))
+    auc_num = torch.zeros(brand_num, dtype=torch.int64, device=dev
+                          ).index_add_(0, lab_g, neg_below)
+
+    # first-positive rank: entries above the best positive (a higher score,
+    # or the same score at a lower global index: stable descending order)
+    p_star = torch.full((brand_num,), -torch.inf, device=dev).scatter_reduce(
+        0, lab_g, torch.where(valid_g, d_g, -inf), "amax")
+    gidx_g = torch.arange(n_total, device=dev)
+    is_star = valid_g & (d_g == p_star[lab_g])
+    idx_star = torch.full((brand_num,), n_total, device=dev).scatter_reduce(
+        0, lab_g, torch.where(is_star, gidx_g, n_total), "amin")
+    gidx = collectives.rank() * n_l + torch.arange(n_l, device=dev)
+    live = ~pad_l[None, :]
+    ahead = (((scores_l > p_star[:, None]) & live).sum(1)
+             + ((scores_l == p_star[:, None]) & live
+                & (gidx[None, :] < idx_star[:, None])).sum(1))
+    rank_first = collectives.all_reduce_sum_(ahead)
+
+    # NDCG: each shard's top-50 a brand (stable: lower index first), merged
+    # shard-major, which is global-index order among equal scores
+    k = min(_NDCG_KMAX, n_l)
+    top = torch.sort(torch.where(pad_l[None, :], -inf, scores_l), dim=1,
+                     descending=True, stable=True)
+    top_v, top_i = top.values[:, :k], top.indices[:, :k]
+    top_rel = (brands_l[top_i] == torch.arange(
+        brand_num, device=dev)[:, None]).to(torch.int64)
+    vals_m = collectives.all_gather(top_v[None]).permute(1, 0, 2).reshape(
+        brand_num, -1)
+    rel_m = collectives.all_gather(top_rel[None]).permute(1, 0, 2).reshape(
+        brand_num, -1)
+    merged = torch.sort(vals_m, dim=1, descending=True, stable=True).indices
+    rel50 = torch.gather(rel_m, 1, merged[:, :_NDCG_KMAX])
+    return [x.cpu().numpy() for x in
+            (pos_cnt, neg_cnt, auc_num, rank_first, rel50)]
+
+
+def ranking_metrics_sharded(scores_l: torch.Tensor, brands_l,
+                            brand_num: int) -> RankingMetrics:
+    """Exact ranking metrics over the post shards of a world.
+
+    scores_l: this rank's (brands, n_l) block of the score matrix, its
+    posts a contiguous shard in rank order (every rank's n_l the same; pad
+    posts labelled -1 in brands_l). Every rank gets the oracle's metrics
+    for the live posts of all shards. The final assembly runs in float64
+    on the host with the oracle's own arithmetic (AUC as an integer pair
+    count over |pos| x |neg|, NDCG from the 0/1 relevance of the top
+    entries), so the result equals the oracle's exactly."""
+    scores_l = torch.as_tensor(scores_l, dtype=torch.float32)[:brand_num]
+    brands_l = torch.as_tensor(brands_l, device=scores_l.device).to(
+        torch.int64)
+    pos_cnt, neg_cnt, auc_num, rank_first, rel50 = _sharded_brand_stats(
+        scores_l, brands_l, brand_num)
+    n_live = int(pos_cnt.sum())            # every live post has one brand
+    valid = pos_cnt > 0
+    auc = np.zeros(brand_num)
+    ndcg10, ndcg50 = np.zeros(brand_num), np.zeros(brand_num)
+    kk = min(_NDCG_KMAX, n_live)
+    for b in np.nonzero(valid)[0]:
+        if neg_cnt[b]:
+            auc[b] = float(auc_num[b]) / (int(pos_cnt[b]) * int(neg_cnt[b]))
+        rel = rel50[b, :kk].astype(np.float64)
+        ideal = np.zeros(kk)
+        ideal[:min(int(pos_cnt[b]), kk)] = 1.0
+        for out, k in ((ndcg10, 10), (ndcg50, 50)):
+            dcg_max = _dcg_at_k(ideal, k)
+            out[b] = _dcg_at_k(rel, k) / dcg_max if dcg_max else 0.0
+    return _assemble_metrics(valid, rank_first, auc, ndcg10, ndcg50,
+                             brand_num)

@@ -3,13 +3,18 @@
     python -m fancyrec_tpu_torch.eval.tester insCartest --rootpath ROOT \\
         --logger_name ROOT/model/runs_0 [--device cpu]
 
-Port of fancyrec_tpu/eval/tester.py on one device: loads a checkpoint
-(whose embedded config is the source of truth for every train-time option,
-reference tester.py:63-65), the port's own or a reference torch one,
-rebuilds the test split's dataset from it, encodes the split, ranks the
-posts for every brand with the cosine kernel, prints the eight metrics and
-writes them to mean_metrics.json beside the results. Runs on CUDA unless
---device cpu.
+Port of fancyrec_tpu/eval/tester.py: loads a checkpoint (whose embedded
+config is the source of truth for every train-time option, reference
+tester.py:63-65), the port's own or a reference torch one, rebuilds the
+test split's dataset from it, encodes the split, ranks the posts for every
+brand with the cosine kernel, prints the eight metrics and writes them to
+mean_metrics.json beside the results. Runs on CUDA unless --device cpu.
+
+In a world of R ranks (`torchrun --nproc_per_node R -m
+fancyrec_tpu_torch.eval.tester ... --mesh_shape R,1`), each rank encodes
+its 1/R of every batch and scores its 1/R of the posts, and the metrics
+are exact (`metrics.ranking_metrics_sharded`); the exits follow the
+primary and only the primary writes mean_metrics.json.
 """
 
 from __future__ import annotations
@@ -24,12 +29,14 @@ from fancyrec_tpu_torch.config import Config
 from fancyrec_tpu_torch.data.dataset import PostDataset, load_info
 from fancyrec_tpu_torch.data.loader import BatchLoader
 from fancyrec_tpu_torch.data.tokenizer import WordPieceTokenizer
-from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.eval.evaluator import encode_data, test_post_ranking
 from fancyrec_tpu_torch.io.bigfile import ImageBigFile
 from fancyrec_tpu_torch.io.dictfile import read_dict
 from fancyrec_tpu_torch.io.vocab import Bow2Vec, load_vocab
 from fancyrec_tpu_torch.models import FancyRec
+from fancyrec_tpu_torch.parallel import distributed
+from fancyrec_tpu_torch.parallel.mesh import (
+    build_mesh, process_batch_shard, require_divisible_batch)
 from fancyrec_tpu_torch.train import checkpoints
 
 
@@ -51,8 +58,9 @@ def parse_args(argv=None):
     p.add_argument("--level_vis", type=str, default="1+2+3")
     p.add_argument("--level_txt", type=str, default="1+2+3")
     p.add_argument("--bert_vocab", type=str, default="")
-    # the JAX package's mesh and XLA compile cache: refused unless empty
+    # "" = every rank of the world on data; "R,1" for a world of R
     p.add_argument("--mesh_shape", type=str, default="")
+    # the JAX package's XLA compile cache: refused unless empty
     p.add_argument("--compilation_cache_dir", type=str, default="")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
@@ -61,16 +69,20 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    for flag in ("mesh_shape", "compilation_cache_dir"):
-        if getattr(opt, flag):
-            raise NotImplementedError(
-                "--%s is not implemented by the PyTorch port (got %r)"
-                % (flag, getattr(opt, flag)))
-    device = resolve_device(opt.device)
+    if opt.compilation_cache_dir:
+        raise NotImplementedError(
+            "--compilation_cache_dir is not implemented by the PyTorch port "
+            "(got %r): it is XLA's compile cache; the port runs eager"
+            % opt.compilation_cache_dir)
+    device = distributed.initialize_multihost(opt.device)
     print(json.dumps(vars(opt), indent=2))
+    mesh = build_mesh(opt.mesh_shape)
+    require_divisible_batch(mesh, opt.batch_size)
 
+    # the exits follow the primary, whose files are the truth: a rank that
+    # exited alone would leave the others waiting in a collective
     resume = os.path.join(opt.logger_name, opt.checkpoint_name)
-    if not os.path.exists(resume):
+    if distributed.primary_decision(not os.path.exists(resume)):
         logging.info(resume + " not exists.")
         sys.exit(0)
 
@@ -88,7 +100,8 @@ def main(argv=None):
                                     "/results/%s/" % cfg.trainCollection)
     pred_error_matrix_file = os.path.join(output_dir,
                                           "pred_errors_matrix.pth.tar")
-    if os.path.exists(pred_error_matrix_file) and not opt.overwrite:
+    if distributed.primary_decision(os.path.exists(pred_error_matrix_file)
+                                    and not opt.overwrite):
         print("%s exists. skip" % pred_error_matrix_file)
         sys.exit(0)
     result_file = os.path.join(os.path.dirname(output_dir),
@@ -134,7 +147,9 @@ def main(argv=None):
     # they bite (encode_data scatters embeddings back by dataset index)
     bucketing = bool(cfg.token_buckets_list or cfg.frame_buckets_list)
     loader = BatchLoader(dataset, opt.batch_size, final_batch="pad",
-                         grouped="sort" if bucketing else "off")
+                         grouped="sort" if bucketing else "off",
+                         process_shard=process_batch_shard(
+                             mesh, opt.batch_size))
 
     model = FancyRec(cfg)
     model.load_state_dict(ckpt["state_dict"])
@@ -153,9 +168,10 @@ def main(argv=None):
     print("recall@10:", m.r10)
     print("MedR:", m.medr)
     print("MeanR:", m.meanr)
-    os.makedirs(os.path.dirname(result_file) or ".", exist_ok=True)
-    with open(result_file, "w") as f:
-        f.write(json.dumps({k: float(v) for k, v in m._asdict().items()}))
+    if distributed.is_primary():
+        os.makedirs(os.path.dirname(result_file) or ".", exist_ok=True)
+        with open(result_file, "w") as f:
+            f.write(json.dumps({k: float(v) for k, v in m._asdict().items()}))
     return m
 
 

@@ -9,9 +9,11 @@ preprocess/txt2bin.py:25-110):
   <dir>/id.txt        single line of N names joined by a delimiter
                       ('#' for image/frame stores, ' ' for word2vec stores)
 
-Unlike the reference's per-row seek/read loop, the reader memory-maps
-feature.bin once and gathers rows with vectorized numpy fancy indexing --
-a batch of frame rows is one gather, not len(batch) syscalls.
+Unlike the reference's per-row seek/read loop, the reader gathers a batch
+of rows in one call: through the native mmap gather
+(`io/native.py`, built with the host's g++ at first use), or, where the
+host has no C++ compiler, through a numpy memmap's fancy indexing.
+`reader.engine` says which ("native" or "memmap").
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+
+from fancyrec_tpu_torch.io import native
 
 
 class BigFileReader:
@@ -48,12 +52,20 @@ class BigFileReader:
             self.binary_file, dtype=np.float32, mode="r",
             shape=(self.nr_of_rows, self.ndims),
         )
+        self._native = None
+        if self.nr_of_rows > 0 and native.available():
+            self._native = native.NativeGather(
+                self.binary_file, self.nr_of_rows, self.ndims)
+        self.engine = "native" if self._native is not None else "memmap"
 
     # -- bulk vectorized access (the fast path) ------------------------------
 
     def read_rows(self, indices: Sequence[int]) -> np.ndarray:
-        """Gather rows by integer index -> (len(indices), D) float32 array."""
+        """Gather rows by integer index -> (len(indices), D) float32 array,
+        through the native gather where it is built, else the memmap."""
         idx = np.asarray(indices, dtype=np.int64)
+        if self._native is not None:
+            return self._native.gather(idx)
         return np.asarray(self._mmap[idx])
 
     def read_by_names(self, names: Sequence[str]) -> np.ndarray:

@@ -18,7 +18,7 @@ float32 and a mapped tower's output bfloat16.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,6 +34,10 @@ class VisualBatch(NamedTuple):
     frames: torch.Tensor       # (B, T, D) zero-padded frame features
     mean_origin: torch.Tensor  # (B, D) mean over *all* frames of the clip
     mask: torch.Tensor         # (B, T) 0/1 valid-frame mask
+    # 0-d batch-max valid length; None: from `mask`. A rank of a world
+    # holds a slice of the batch and passes the GLOBAL batch's maximum, as
+    # the JAX package's reductions over the sharded logical batch see it
+    max_len: Optional[torch.Tensor] = None
 
 
 class TextBatch(NamedTuple):
@@ -41,6 +45,11 @@ class TextBatch(NamedTuple):
     tokens: torch.Tensor       # (B, T) word ids (rnn) or WordPiece ids (bert)
     type_ids: torch.Tensor     # (B, T) segment ids (bert path; zeros for rnn)
     mask: torch.Tensor         # (B, T) 0/1 valid-token mask
+    max_len: Optional[torch.Tensor] = None   # as VisualBatch.max_len
+
+
+def _batch_len(mask: torch.Tensor, max_len: Optional[torch.Tensor]):
+    return batch_max_len(mask) if max_len is None else max_len
 
 
 def _select_levels(level: str, full: list, parts: dict):
@@ -74,9 +83,9 @@ class VisualEncoder(nn.Module):
 
     def forward(self, v: VisualBatch):
         mask = v.mask.to(self.dtype)
-        bl = batch_max_len(mask)
+        bl = _batch_len(mask, v.max_len)
         org_out = v.mean_origin
-        attn_out = self.atten(v.frames, mask)
+        attn_out = self.atten(v.frames, mask, bl)
         gru_seq = self.rnn(v.frames, batch_len=bl)
         gru_out = self.gru_drop(masked_mean(gru_seq, mask))
         con_out = self.con_drop(self.convs(gru_seq * mask[..., None], bl))
@@ -119,7 +128,7 @@ class TextGruEncoder(nn.Module):
     def forward(self, t: TextBatch):
         mask = t.mask.to(self.dtype)
         lengths = t.mask.sum(dim=1).to(torch.int64)
-        bl = batch_max_len(mask)
+        bl = _batch_len(mask, t.max_len)
         gru_seq = self.rnn(self.embed[t.tokens], lengths=lengths)
         gru_out = self.gru_drop(masked_mean(gru_seq, mask))
         con_out = self.con_drop(self.convs(gru_seq, bl))
@@ -156,7 +165,7 @@ class TextTransformersEncoder(nn.Module):
 
     def forward(self, t: TextBatch):
         mask = t.mask
-        bl = batch_max_len(mask)
+        bl = _batch_len(mask, t.max_len)
         last_hidden = self.bert(t.tokens, t.type_ids, mask)
         tf_out = masked_mean(last_hidden, mask.to(last_hidden.dtype))
         pos_valid = torch.arange(mask.shape[1], device=mask.device)[None, :] < bl

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fancyrec_tpu_torch.parallel import collectives
+
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     """Row L2-normalization (no epsilon, as in the reference)."""
@@ -105,7 +107,8 @@ class AttentionPool(nn.Module):
         self.w_1 = nn.Linear(feat_dim, hidden, bias=False)
         self.w_2 = nn.Linear(hidden, heads, bias=False)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, batch_len=None):
+        """batch_len: the 0-d batch-max valid length (default: from mask)."""
         # the scores and weights in the compute dtype; weight * x promotes
         # to x's dtype
         a = torch.tanh(dense(self.w_1, x, self.dtype))
@@ -115,7 +118,9 @@ class AttentionPool(nn.Module):
                             torch.full_like(score, torch.finfo(score.dtype).min))
         weight = torch.softmax(score, dim=1)
         weight = torch.where(valid, weight, torch.zeros_like(weight))
-        t_batch = torch.clamp(batch_max_len(mask), min=1).to(x.dtype)
+        if batch_len is None:
+            batch_len = batch_max_len(mask)
+        t_batch = torch.clamp(batch_len, min=1).to(x.dtype)
         return (weight[..., None] * x).sum(dim=1) / t_batch
 
 
@@ -165,7 +170,13 @@ class BatchNorm1dTorch(nn.Module):
     running statistics toward the mean and the unbiased variance.
     A bfloat16 x keeps the batch statistics and the normalized values in
     bfloat16; the float32 scale and bias (and running statistics) promote
-    the output to float32, as in the JAX module."""
+    the output to float32, as in the JAX module.
+
+    In a world of R ranks (each holding an equal slice of the batch) the
+    training statistics are the GLOBAL batch's, as GSPMD gives the JAX
+    package over its sharded batch: the sum, then the centered sum of
+    squares, are all-reduced (with autograd) and divided by the global
+    count, and every rank moves its running statistics the same way."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -177,10 +188,17 @@ class BatchNorm1dTorch(nn.Module):
     def forward(self, x):
         if not self.training:
             mean, var = self.running_mean, self.running_var
+        elif collectives.world_size() > 1:
+            n = x.shape[0] * collectives.world_size()
+            mean = (collectives.all_reduce_sum(x.float().sum(dim=0))
+                    / n).to(x.dtype)
+            var = (collectives.all_reduce_sum(
+                ((x - mean) ** 2).float().sum(dim=0)) / n).to(x.dtype)
         else:
             mean = x.mean(dim=0)
             var = ((x - mean) ** 2).mean(dim=0)
             n = x.shape[0]
+        if self.training:
             with torch.no_grad():
                 unbiased = var * n / max(n - 1, 1)
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)

@@ -1,28 +1,33 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each `csrc/<name>.cu` compiles with `nvcc` into `build/kernels/lib<name>.so`
 (a plain C interface, no PyTorch headers, so a build takes seconds) and
-loads through `ctypes`. Builds happen at first use, from the repository's
-sources only; a library older than its source is rebuilt. Nothing here runs
-at import time: the CPU tests import every module on machines without
+loads through `ctypes`. The host library `csrc/<name>.cpp` (the row
+gather of `io/native.py`) compiles with the host's `g++` into
+`build/host/`. Builds happen at first use, from the repository's sources
+only; a library older than its source is rebuilt. Nothing here runs at
+import time: the CPU tests import every module on machines without
 `nvcc`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -90,6 +95,51 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
+        return lib
+
+
+def host_compiler() -> Optional[str]:
+    """The host's C++ compiler (g++), or None where it has none."""
+    return shutil.which("g++")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for `csrc/<name>.cpp`, built with `g++` if
+    missing or stale. Processes that build at once (test workers, the ranks
+    of a world) take an exclusive file lock, so one compiles and the others
+    load its result; the library is written to a temporary file and renamed
+    into place. Raises if there is no compiler or the build fails."""
+    with _lock:
+        key = "host:" + name
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        src = os.path.join(CSRC, name + ".cpp")
+        out = os.path.join(HOST_BUILD_DIR, "lib%s.so" % name)
+
+        def stale():
+            return (not os.path.exists(out)
+                    or os.path.getmtime(out) < os.path.getmtime(src))
+
+        if stale():
+            os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+            with open(out + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if stale():
+                    cxx = host_compiler()
+                    if cxx is None:
+                        raise RuntimeError("g++ not found: %s is built from "
+                                           "source at first use" % src)
+                    tmp = "%s.%d.tmp" % (out, os.getpid())
+                    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src],
+                                          capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError("host build of %s failed (g++ exit "
+                                           "%d):\n%s" % (src, proc.returncode,
+                                                          proc.stderr))
+                    os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        _libs[key] = lib
         return lib
 
 

@@ -16,6 +16,7 @@ import torch
 from fancyrec_tpu_torch.config import Config
 from fancyrec_tpu_torch.losses import ContrastiveQueueState, init_queue_state
 from fancyrec_tpu_torch.models import FancyRec, init_fancyrec
+from fancyrec_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -103,10 +104,11 @@ def scale_lr(opt: torch.optim.Optimizer, factor: float) -> None:
 
 def init_state(cfg: Config, device, seed: int = None):
     """-> (model, optimizer, TrainState): random weights from `seed`
-    (default cfg.seed), the model on `device` with its dropouts seeded."""
+    (default cfg.seed), the model on `device` with its dropouts seeded
+    (in a world, each rank's dropouts from a stream of its own)."""
     seed = cfg.seed if seed is None else seed
     model = init_fancyrec(FancyRec(cfg), torch.Generator().manual_seed(seed))
-    model.to(device).seed_dropout(seed)
+    model.to(device).seed_dropout(distributed.dropout_seed(seed))
     opt = make_optimizer(cfg, model.parameters())
     state = TrainState(queue=init_queue_state(
         cfg.queue_size, cfg.common_embedding_size, device=device))

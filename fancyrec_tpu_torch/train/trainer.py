@@ -4,8 +4,8 @@
         insCartest --rootpath ROOT [the flags of bin/instance.sh] \\
         [--device cpu]
 
-Port of fancyrec_tpu/train/trainer.py on one device (no meshes or hosts).
-The same flags, on-disk layout, checkpoint policy, lr schedule
+Port of fancyrec_tpu/train/trainer.py. The same flags, on-disk layout,
+checkpoint policy, lr schedule
 (x lr_decay_rate each epoch, a further x0.5 after 2 stale epochs), early
 stop after 10 stale epochs, a fresh contrastive queue each epoch, and
 model selection on --validate_split (default the test split, the
@@ -17,6 +17,15 @@ throughput mode runs too: --dtype bfloat16 (the towers in bfloat16),
 --transfer_dtype bfloat16 (float batch arrays staged in bfloat16 on the
 host, upcast on the device), --bert_remat 1 and --profile_dir DIR (a
 torch.profiler trace of epoch min(1, num_epochs - 1)).
+
+Data parallelism: launched as R processes (`torchrun --nproc_per_node R
+-m fancyrec_tpu_torch.train.trainer ... --mesh_shape R,1`, or any launcher
+that sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), each
+rank loads and encodes its contiguous 1/R of every batch and the update
+is the global batch's (`parallel/`, `train/step.py`), as the JAX package
+computes it on a (data=R, model=1) mesh. --mesh_shape "" puts every rank
+on data. Skip decisions are the primary's; only the primary (rank 0)
+writes metrics, checkpoints and val_metric.txt.
 """
 
 from __future__ import annotations
@@ -35,15 +44,17 @@ from fancyrec_tpu_torch.data.dataset import PostDataset, load_info
 from fancyrec_tpu_torch.data.loader import (
     BatchLoader, bucket_batch, prefetch_to_device)
 from fancyrec_tpu_torch.data.tokenizer import WordPieceTokenizer
-from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.eval.evaluator import (
-    _MODEL_KEYS, encode_data, test_post_ranking)
+    _DEVICE_KEYS, encode_data, test_post_ranking)
 from fancyrec_tpu_torch.eval.metrics import composite_score
 from fancyrec_tpu_torch.io.bigfile import ImageBigFile
 from fancyrec_tpu_torch.io.dictfile import read_dict
 from fancyrec_tpu_torch.io.vocab import Bow2Vec, load_vocab
 from fancyrec_tpu_torch.io.word2vec import get_we_parameter
 from fancyrec_tpu_torch.losses import init_queue_state
+from fancyrec_tpu_torch.parallel import collectives, distributed
+from fancyrec_tpu_torch.parallel.mesh import (
+    Mesh, build_mesh, process_batch_shard, require_divisible_batch)
 from fancyrec_tpu_torch.train import checkpoints
 from fancyrec_tpu_torch.train.state import (
     TrainState, current_lr, init_state, load_optimizer_state, scale_lr)
@@ -51,7 +62,7 @@ from fancyrec_tpu_torch.train.step import stack_microbatches, train_step
 from fancyrec_tpu_torch.utils import profiling
 from fancyrec_tpu_torch.utils.tb_events import TBEventWriter
 
-_TRAIN_KEYS = ("brand_ids",) + _MODEL_KEYS
+_TRAIN_KEYS = ("brand_ids",) + _DEVICE_KEYS
 
 
 def check_to_skip(filename: str, overwrite: int) -> bool:
@@ -155,8 +166,14 @@ def _superbatches(loader, accumulation_step: int, token_buckets=None,
         if len(group) == accumulation_step:
             sb = stack_microbatches(group)
             if token_buckets or frame_buckets:
-                # the whole super-batch shares one bucket shape
-                sb = bucket_batch(sb, token_buckets, frame_buckets)
+                # the whole super-batch shares one bucket shape; a
+                # process-sharded loader carries the GLOBAL length maxima,
+                # so that every rank slices the same shapes
+                maxima = ({k: max(b[k] for b in group)
+                           for k in ("tlen_max", "flen_max")}
+                          if "tlen_max" in group[0] else None)
+                sb = bucket_batch(sb, token_buckets, frame_buckets,
+                                  maxima=maxima)
             if transfer_dtype:
                 dt = getattr(torch, transfer_dtype)
                 sb = {k: (torch.from_numpy(v).to(dt)
@@ -170,7 +187,8 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
                 epoch: int, device: torch.device):
     """One pass over `loader` -> (state, {"losses", "seconds", "posts"}).
     A background thread assembles and pins the next super-batches while
-    the device runs the current step."""
+    the device runs the current step; every collective stays on this
+    thread. "posts" counts the global batches' posts."""
     print("Epoch[{0} / {1}] LR: {2}".format(epoch, cfg.num_epochs,
                                              current_lr(opt)))
     losses = []
@@ -185,7 +203,7 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
         # kept on the device: reading it here would wait for every step
         losses.append(metrics["loss"])
         n_items += (superbatch["frames"].shape[0]
-                    * superbatch["frames"].shape[1])
+                    * superbatch["frames"].shape[1] * collectives.world_size())
     losses = [float(x) for x in losses]
     dt = time.time() - t0
     if losses:
@@ -213,27 +231,43 @@ class MetricsLog:
 def main(argv=None):
     args = build_train_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
+    device = distributed.initialize_multihost(args.device)
     print(json.dumps(vars(args), indent=2, default=str))
-    return _run(cfg, device)
+    mesh = build_mesh(cfg.mesh_shape)
+    # an explicit --mesh_shape's batch is checked by cfg.finalize; the
+    # default mesh's data axis is known only here
+    require_divisible_batch(mesh, cfg.batch_size)
+    if mesh.data > 1:
+        print("mesh: data=%d, model=1; rank %d on %s"
+              % (mesh.data, mesh.rank, device))
+    return _run(cfg, device, mesh)
 
 
-def _run(cfg: Config, device: torch.device):
+def _run(cfg: Config, device: torch.device, mesh: Mesh):
     cfg.logger_name = os.path.join(cfg.rootpath, "model", cfg.postfix)
+    # skip decisions follow the primary (its files are the truth), so that
+    # every rank returns together or none does
     if cfg.auto_resume:
         # a finished run (val_metric.txt) still skips; a crashed one
         # resumes from its newest epoch checkpoint
-        if check_to_skip(os.path.join(cfg.logger_name, "val_metric.txt"),
-                         cfg.overwrite):
+        if distributed.primary_decision(check_to_skip(
+                os.path.join(cfg.logger_name, "val_metric.txt"),
+                cfg.overwrite)):
             return None
-        _, latest = checkpoints.latest_epoch_checkpoint(cfg.logger_name)
+        latest_epoch, latest = checkpoints.latest_epoch_checkpoint(
+            cfg.logger_name)
+        # every rank must resume from the same checkpoint
+        distributed.assert_agreement("auto_resume latest epoch",
+                                     latest_epoch)
         if latest and not cfg.resume:
             cfg.resume = latest
             print("auto_resume: continuing from %s" % latest)
-    elif (check_to_skip(os.path.join(cfg.logger_name, "model_best.pth.tar"),
-                        cfg.overwrite)
-          or check_to_skip(os.path.join(cfg.logger_name, "val_metric.txt"),
-                           cfg.overwrite)):
+    elif (distributed.primary_decision(check_to_skip(
+            os.path.join(cfg.logger_name, "model_best.pth.tar"),
+            cfg.overwrite))
+          or distributed.primary_decision(check_to_skip(
+              os.path.join(cfg.logger_name, "val_metric.txt"),
+              cfg.overwrite))):
         return None
     os.makedirs(cfg.logger_name, exist_ok=True)
 
@@ -243,18 +277,27 @@ def _run(cfg: Config, device: torch.device):
     # back by dataset index); the train loader regroups only on request
     eval_grouped = ("sort" if cfg.token_buckets_list or cfg.frame_buckets_list
                     else "off")
+    # in a world each rank gathers only its 1/R of every batch's rows
+    pshard = process_batch_shard(mesh, cfg.batch_size)
+    if pshard is not None:
+        print("process-sharded loading: rank %d/%d gathers %d of %d rows a "
+              "batch" % (pshard[0], pshard[1], cfg.batch_size // pshard[1],
+                         cfg.batch_size))
     loaders = {
         "train": BatchLoader(datasets["train"], cfg.batch_size, shuffle=True,
                              seed=cfg.seed, final_batch="drop",
-                             grouped="window" if cfg.length_grouped else "off"),
+                             grouped="window" if cfg.length_grouped else "off",
+                             process_shard=pshard),
         "val": BatchLoader(datasets["val"], cfg.batch_size, final_batch="pad",
-                           grouped=eval_grouped),
+                           grouped=eval_grouped, process_shard=pshard),
         # 'check': the train split re-scored, to see overfitting
         # (--validate_split check)
         "check": BatchLoader(datasets["train"], cfg.batch_size,
-                             final_batch="pad", grouped=eval_grouped),
+                             final_batch="pad", grouped=eval_grouped,
+                             process_shard=pshard),
         "test": BatchLoader(datasets["test"], cfg.batch_size,
-                            final_batch="pad", grouped=eval_grouped),
+                            final_batch="pad", grouped=eval_grouped,
+                            process_shard=pshard),
     }
 
     model, opt, state = init_state(cfg, device)
@@ -265,7 +308,8 @@ def _run(cfg: Config, device: torch.device):
     best_epoch = None
     eiters = 0
     start_epoch = 0
-    mlog = MetricsLog(cfg.logger_name)
+    primary = distributed.is_primary()
+    mlog = MetricsLog(cfg.logger_name) if primary else None
 
     if cfg.resume:
         if os.path.isfile(cfg.resume):
@@ -318,7 +362,8 @@ def _run(cfg: Config, device: torch.device):
         if device.type == "cuda":
             record["device_peak_bytes"] = torch.cuda.max_memory_allocated(
                 device)
-        mlog.write(record)
+        if primary:
+            mlog.write(record)
         is_best = score > best_rsum
         print(" * Current perf in Test: {}".format(score))
         print(" * Best perf in Test: {}".format(best_rsum))
@@ -335,15 +380,19 @@ def _run(cfg: Config, device: torch.device):
                 half = True
         else:
             no_impr = 0
-        best_rsum = checkpoints.maybe_save_best(
-            cfg.logger_name, cfg, model, epoch, score, best_rsum,
-            state.step + eiters, best_epoch, optimizer=opt,
-            extra_meta={"no_impr": no_impr,
-                        "lr_counter": 0 if half else lr_counter,
-                        # the saved optimizer predates this epoch's lr
-                        # scalings; auto_resume applies this factor
-                        "pending_lr_scale": cfg.lr_decay_rate * (
-                            0.5 if half else 1.0)})
+        if primary:
+            best_rsum = checkpoints.maybe_save_best(
+                cfg.logger_name, cfg, model, epoch, score, best_rsum,
+                state.step + eiters, best_epoch, optimizer=opt,
+                extra_meta={"no_impr": no_impr,
+                            "lr_counter": 0 if half else lr_counter,
+                            # the saved optimizer predates this epoch's lr
+                            # scalings; auto_resume applies this factor
+                            "pending_lr_scale": cfg.lr_decay_rate * (
+                                0.5 if half else 1.0)})
+        else:
+            # the other ranks track the same best without writing
+            best_rsum = max(score, best_rsum)
         if is_best:
             best_epoch = epoch
         scale_lr(opt, cfg.lr_decay_rate)
@@ -354,8 +403,9 @@ def _run(cfg: Config, device: torch.device):
             scale_lr(opt, 0.5)
             lr_counter = 0
 
-    with open(os.path.join(cfg.logger_name, "val_metric.txt"), "w") as f:
-        f.write(str(best_rsum))
+    if primary:
+        with open(os.path.join(cfg.logger_name, "val_metric.txt"), "w") as f:
+            f.write(str(best_rsum))
     print("best performance on Val: {}\n".format(best_rsum))
     return best_rsum
 

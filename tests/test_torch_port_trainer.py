@@ -110,9 +110,31 @@ def test_auto_resume_restores_the_optimizer_moments(root, monkeypatch):
                                 "--overwrite", "0"]) is None
 
 
-def test_not_ported_flags_are_refused(root):
-    for flag in (["--mesh_shape", "2,1"], ["--pp_stages", "2"],
-                 ["--seq_shard"], ["--rng_impl", "rbg"],
-                 ["--compilation_cache_dir", "/nonexistent"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            trainer.main(TINY + ["--rootpath", root] + flag)
+@pytest.mark.parametrize("flag, error, match", [
+    # a data axis of 2 needs a world of 2 ranks; this process is a world
+    # of one (as the JAX package's build_mesh refuses too many devices)
+    (["--mesh_shape", "2,1"], ValueError, "needs 2 ranks, have 1"),
+    (["--mesh_shape", "2"], ValueError, "needs 2 ranks, have 1"),
+    # a model axis (tensor parallelism) is a later slice of the port
+    (["--mesh_shape", "1,2"], NotImplementedError, "model mesh axis"),
+    (["--pp_stages", "2"], NotImplementedError, "--pp_stages"),
+    (["--seq_shard"], NotImplementedError, "--seq_shard"),
+    (["--rng_impl", "rbg"], NotImplementedError, "--rng_impl"),
+    (["--compilation_cache_dir", "/nonexistent"], NotImplementedError,
+     "--compilation_cache_dir"),
+])
+def test_not_ported_flags_are_refused(root, flag, error, match):
+    logdir = os.path.join(root, "model", "refused")
+    with pytest.raises(error, match=match):
+        trainer.main(TINY + ["--rootpath", root, "--postfix", "refused"]
+                     + flag)
+    assert not os.path.exists(logdir)      # refused before any write
+
+
+def test_mesh_of_one_trains_as_no_mesh(root):
+    """--mesh_shape 1,1 in a world of one is the one-process run."""
+    args = TINY + ["--rootpath", root, "--text_net", "bi-gru",
+                   "--num_epochs", "1"]
+    best = trainer.main(args + ["--postfix", "mesh11", "--mesh_shape", "1,1"])
+    plain = trainer.main(args + ["--postfix", "mesh_none"])
+    assert best == plain
