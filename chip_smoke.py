@@ -96,12 +96,28 @@ Phases:
      its eight metrics equal the one-process tester's. The phase's trainer
      runs have every dropout off and deterministic algorithms on; each
      rank prints its ms per update, device peak and launches.
+  11. tensor parallelism (--mesh_shape R,M), on phase 5's tree: (a) K2 on
+     aspect shards of the 2000-aspect table at M = 2 and 4, B = 8 and 4:
+     each shard's C entries against their plain versions (times and bounds
+     at the shard's A), every shard's keep bits equal to the one-table
+     kernel's bits of its aspects and the shards' outputs summing to its
+     output; (b) the trainer CLI for one recipe epoch at --mesh_shape 1,2
+     (two ranks sharing the card, gloo, dropouts off): its first update,
+     gathered over the model group, within phase 5's tolerances of 10c's
+     one-process update, and each rank launches K1-fwd, K1-bwd, K2 on its
+     1000 aspects and K4; then one update with every dropout on at (1, 2)
+     against one process from the same seed; (c) one update at
+     --mesh_shape 2,2 (four ranks) against 10c's; (d) the tester CLI at
+     (1, 2) on b's checkpoint: its metrics equal the one-process tester's.
 The kernels' launch counts are zeroed just before each of the seven paths
 (4, 4b, 4d, 5c, 6, 7's trainer and 7's tester) and read just after: each
 kernel must have run on its path (K1-fwd on 4 and 4d, K3 on 4 and 4b).
-Phase 10's ranks zero and read their own counts around their CLI's main;
-its records (K1, K2 at B=4, K4 at a shard) count the launches summed over
-the ranks of 10d (training) and 10e (evaluation).
+Phase 10's and 11's ranks zero and read their own counts around their
+CLI's main (or their one update); the records of phase 10 (K1, K2 at B=4,
+K4 at a shard) count the launches summed over the ranks of 10d (training)
+and 10e (evaluation), those of K2 on aspect shards over 11b's ranks (B=8,
+the trainer at (1, 2)) and 11c's (B=4, the update at (2, 2)). K2 at M=4
+runs on no main path: its records are printed on a line of their own.
 Phase 9 runs cuDNN's convolutions and none of the six kernels: its counts
 are printed, not required.
 
@@ -888,7 +904,7 @@ def sweep_gru_rows(dev):
             "picked %.3f ms" % (b, K1_TOL, ", ".join(cells), picked))
 
 
-def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
+def check_aspect_dropout(dev, b=B_TRAIN, sass=None, model_axis=1):
     """K2 at a training shape (B=8, bin/instance.sh's microbatch, or B=64,
     the throughput mode's; A=2000, C=1024, keep 0.5): the keep bits the
     forward writes equal the packed plain Philox mask bit for bit; the
@@ -897,36 +913,45 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
     wrapper calls, the C entries alone on buffers made once, and the
     device time of their kernels. Bounds: the forward's from the SASS of
     its per-block step (`k2_sass_ops`, passed in where it was counted
-    already), the backward's from its bytes. -> (the two records, sass)."""
+    already), the backward's from its bytes. model_axis M > 1: the same
+    on the last of M aspect shards (A/M aspects of the table's 2000, whose
+    counters are the table's largest), the bounds at the shard's A.
+    -> (the two records, sass)."""
     import torch
     from fancyrec_tpu_torch.ops import brand_dropout as bd
     from fancyrec_tpu_torch.ops import _build
 
-    a, c = N_ASPECTS, DIM
+    a_total, c = N_ASPECTS, DIM
+    a = a_total // model_axis
+    a_off = a_total - a
+    shard = dict(a_total=a_total, a_off=a_off)
+    tag = ("B=%d" % b if model_axis == 1 else "B=%d on aspects [%d, %d) of %d"
+           % (b, a_off, a_total, a_total))
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     w = torch.randn(b, a, generator=g, device=dev)
     asp = torch.randn(a, c, generator=g, device=dev)
     gr = torch.randn(b, c, generator=g, device=dev)
-    thr, _ = bd.keep_threshold(a, KEEP)
+    thr, _ = bd.keep_threshold(a_total, KEEP)
     plan = bd.aspect_dropout_plan(b, a, c, _build.sm_count(dev))
-    log("aspect_dropout plan %s: the forward's grid (C / 128, splits, B / 8) "
-        "of 256 threads, then the split sum (PDL); the backward's %s"
-        % (plan, "persistent blocks of 256 threads taking A's groups of 4 "
-           "aspects in turn" if plan.bwd_blocks else "block a group of 4 "
-           "aspects"))
+    log("aspect_dropout plan %s%s: the forward's grid (C / 128, splits, "
+        "B / 8) of 256 threads, then the split sum (PDL); the backward's %s"
+        % (plan, "" if model_axis == 1 else " (aspects [%d, %d) of %d)"
+           % (a_off, a_total, a_total), "persistent blocks of 256 threads "
+           "taking A's groups of 4 aspects in turn" if plan.bwd_blocks
+           else "block a group of 4 aspects"))
     with torch.no_grad():
         # the plain mask a span of aspects at a time, packed as it comes
-        chunks = [bd.dropout_mask(K2_SEED, thr, b, a, c, lo,
-                                  min(lo + 250, a), dev)
+        chunks = [bd.dropout_mask(K2_SEED, thr, b, a_total, c, a_off + lo,
+                                  a_off + min(lo + 250, a), dev)
                   for lo in range(0, a, 250)]
         kept = sum(int(m.sum()) for m in chunks)
         want_bits = torch.cat([bd.pack_keep_bits(m) for m in chunks], dim=1)
         del chunks
         out_k, bits_k = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
-                                                   with_bits=True)
+                                                   with_bits=True, **shard)
         out_k2, bits_k2 = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
-                                                     with_bits=True)
-        out_nb = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP)
+                                                     with_bits=True, **shard)
+        out_nb = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP, **shard)
         torch.cuda.synchronize()
         if not torch.equal(bits_k, want_bits):
             diff = (bits_k != want_bits)
@@ -937,21 +962,24 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
                 and torch.equal(out_k, out_nb)):
             fail("aspect dropout: two forward calls (with and without bits) "
                  "differ")
-        log("aspect_dropout at B=%d: the forward's keep bits equal the "
+        log("aspect_dropout at %s: the forward's keep bits equal the "
             "packed plain mask bit for bit (%d elements, %d words, kept share "
             "%.5f); two calls and the call without bits give the same output "
-            "bits" % (b, b * a * c, want_bits.numel(), kept / (b * a * c)))
-        out_p = bd.aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP)
-        dw_k, dasp_k = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
-        dw_k2, dasp_k2 = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP)
-        dw_p, dasp_p = bd.aspect_dropout_bwd_ref(w, asp, gr, K2_SEED, KEEP)
+            "bits" % (tag, b * a * c, want_bits.numel(), kept / (b * a * c)))
+        out_p = bd.aspect_dropout_fwd_ref(w, asp, K2_SEED, KEEP, **shard)
+        dw_k, dasp_k = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP,
+                                                  a_total)
+        dw_k2, dasp_k2 = bd.aspect_dropout_bwd_cuda(w, asp, gr, bits_k, KEEP,
+                                                    a_total)
+        dw_p, dasp_p = bd.aspect_dropout_bwd_ref(w, asp, gr, K2_SEED, KEEP,
+                                                 **shard)
         torch.cuda.synchronize()
         err_f = (out_k - out_p).abs().max().item()
         err_b = max((dw_k - dw_p).abs().max().item(),
                     (dasp_k - dasp_p).abs().max().item())
-        log("aspect_dropout at B=%d: max |kernel - plain| forward %.3g, "
+        log("aspect_dropout at %s: max |kernel - plain| forward %.3g, "
             "backward from the bits against the plain backward from the seed "
-            "%.3g (tolerance %g)" % (b, err_f, err_b, K2_TOL))
+            "%.3g (tolerance %g)" % (tag, err_f, err_b, K2_TOL))
         if not (err_f <= K2_TOL and err_b <= K2_TOL):
             fail("aspect dropout kernels disagree with their plain versions")
         if not (torch.equal(dw_k, dw_k2) and torch.equal(dasp_k, dasp_k2)):
@@ -959,24 +987,25 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
         # a wrapper call is host-bound here: the median of 5 windows, as for
         # K3 and K4
         fwd_ms = statistics.median(cuda_ms(lambda: bd.aspect_dropout_fwd_cuda(
-            w, asp, K2_SEED, KEEP, with_bits=True), 50) for _ in range(5))
+            w, asp, K2_SEED, KEEP, with_bits=True, **shard), 50)
+            for _ in range(5))
         bwd_ms = statistics.median(cuda_ms(lambda: bd.aspect_dropout_bwd_cuda(
-            w, asp, gr, bits_k, KEEP), 50) for _ in range(5))
-        entry = k2_entries(w, asp, gr, K2_SEED, KEEP)
+            w, asp, gr, bits_k, KEEP, a_total), 50) for _ in range(5))
+        entry = k2_entries(w, asp, gr, K2_SEED, KEEP, **shard)
         entry_ms = {k: cuda_ms(fn, 50) for k, fn in entry.items()}
         dev_ms = {k: device_ms(fn, 20) for k, fn in entry.items()}
         reps = 3 if b <= B_TRAIN else 1         # the plain versions are slow
         fwd_plain = cuda_ms(lambda: bd.aspect_dropout_fwd_ref(
-            w, asp, K2_SEED, KEEP, with_bits=True), reps)
+            w, asp, K2_SEED, KEEP, with_bits=True, **shard), reps)
         bwd_plain = cuda_ms(lambda: bd.aspect_dropout_bwd_bits_ref(
-            w, asp, gr, bits_k, KEEP), reps)
-    log("aspect_dropout at B=%d: wrapper call (median of 5) forward (with "
+            w, asp, gr, bits_k, KEEP, a_total), reps)
+    log("aspect_dropout at %s: wrapper call (median of 5) forward (with "
         "bits) %.4f ms, backward %.4f ms, forward + backward %.4f ms; C entry "
         "alone forward %.4f, backward %.4f, forward + backward %.4f ms; "
         "device time (profiler union a call) forward %.4f, backward %.4f, "
         "both %.4f ms; plain forward %.3f ms, plain backward from the bits "
         "%.3f ms"
-        % (b, fwd_ms, bwd_ms, fwd_ms + bwd_ms, entry_ms["fwd"],
+        % (tag, fwd_ms, bwd_ms, fwd_ms + bwd_ms, entry_ms["fwd"],
            entry_ms["bwd"],
            entry_ms["both"], dev_ms["fwd"], dev_ms["bwd"], dev_ms["both"],
            fwd_plain, bwd_plain))
@@ -999,10 +1028,10 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
               roofline(4 * (w.numel() + asp.numel() + gr.numel()
                             + bits_k.numel() + dw_k.numel()
                             + dasp_k.numel()), 4 * kept, F32_FLOPS)]
-    log("aspect_dropout at B=%d: bounds %.4f ms forward (%s), %.4f ms "
+    log("aspect_dropout at %s: bounds %.4f ms forward (%s), %.4f ms "
         "backward (%s); the wrapper calls at %.0f%% and %.0f%% of them, the C "
         "entries alone at %.0f%% and %.0f%%"
-        % (b, bounds[0]["bound_ms"], bounds[0]["bound_by"],
+        % (tag, bounds[0]["bound_ms"], bounds[0]["bound_by"],
            bounds[1]["bound_ms"], bounds[1]["bound_by"],
            100 * bounds[0]["bound_ms"] / fwd_ms,
            100 * bounds[1]["bound_ms"] / bwd_ms,
@@ -1013,6 +1042,9 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
               "library_ms": None,
               "path": "training" if b == B_TRAIN else "fast training"}
     sfx = "" if b == B_TRAIN else "_b%d" % b
+    if model_axis > 1:
+        sfx = "_tp%d_b%d" % (model_axis, b)
+        common.update(shape=[b, a, c], a_total=a_total, a_off=a_off)
     # `ms` is the wrapper call, as for every kernel; beside it the C entry
     # alone on buffers made once and the device time of its kernels
     return [
@@ -1029,11 +1061,12 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None):
     ], sass
 
 
-def k2_entries(w, asp, g, seed, keep):
+def k2_entries(w, asp, g, seed, keep, a_total=None, a_off=0):
     """K2's C entries on buffers made once: {"fwd": the forward with bits,
     "bwd": the backward from those bits, "both": one then the other}, each
     a call without the wrappers' Python (checks, allocations, the stream
-    lookup). Not counted as launches of the wrappers."""
+    lookup); w and asp may be aspects [a_off, a_off + A) of a_total. Not
+    counted as launches of the wrappers."""
     import torch
     from fancyrec_tpu_torch.ops import _build
     from fancyrec_tpu_torch.ops import brand_dropout as bd
@@ -1045,9 +1078,9 @@ def k2_entries(w, asp, g, seed, keep):
     scratch = torch.empty(plan.scratch_floats, device=dev)
     dw, dasp = torch.empty_like(w), torch.empty_like(asp)
     fwd_args = bd.aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed,
-                                          keep, plan)
+                                          keep, plan, a_total, a_off)
     bwd_args = bd.aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep,
-                                          plan)
+                                          plan, a_total)
     fwd_fn, bwd_fn = bd._fwd_fn(), bd._bwd_fn()
     if fwd_fn(*fwd_args) or bwd_fn(*bwd_args):
         fail("the aspect_dropout C entries failed")
@@ -3070,14 +3103,18 @@ DP_RANKS = 2                  # ranks of the data-parallel world on one card
 B_RANK = B_TRAIN // DP_RANKS  # each rank's rows of a recipe microbatch
 DP_TIMEOUT = 420              # seconds a world of ranks may take
 
-# One rank of a phase-10 run, started as `python -c _RANK_MAIN HERE mode out
-# argv`: the trainer (mode "train") or the tester ("test") CLI through its
-# main. Instruments, none of them in the program: deterministic algorithms
-# (so that two runs of the same update can agree bit for bit), the brand
-# dropout off (the tower dropouts are off by flag: each rank draws its own
-# masks, so only dropout-free updates can match across world sizes), rank
-# 0's first update written to `out`.first.pt, and a RANK_RESULT line with
-# this rank's kernel launches, engine, times and device peak; the tester's
+# One rank of a phase-10 or phase-11 run, started as `python -c _RANK_MAIN
+# HERE mode out argv`: the trainer (mode "train") or the tester ("test") CLI
+# through its main, or one update through the library ("step": the
+# trainer's loader, init_state and train_step; "step_drop": the same with
+# the brand dropout on). Instruments, none of them in the program:
+# deterministic algorithms (so that two runs of the same update can agree
+# bit for bit), the brand dropout off but in "step_drop" (the tower
+# dropouts are off by flag where wanted: each data slot draws its own
+# masks, so only dropout-free updates can match across data axes), the
+# first update written to `out`.first.pt by rank 0 (whole: a model rank's
+# shards gathered over its model group), and a RANK_RESULT line with this
+# rank's kernel launches, engine, times and device peak; the tester's
 # encoded posts and brands written to `out`.enc.<rank>.npz.
 _RANK_MAIN = r"""
 import json, os, sys, time
@@ -3090,13 +3127,15 @@ torch.use_deterministic_algorithms(True, warn_only=True)
 import chip_smoke
 from fancyrec_tpu_torch.models import brand
 from fancyrec_tpu_torch.parallel import collectives
+from fancyrec_tpu_torch.parallel.mesh import gather_state_dict
 from fancyrec_tpu_torch.eval import tester
 from fancyrec_tpu_torch.train import trainer
 _init = brand.BrandAspects.__init__
 def _no_brand_dropout(self, *a, **k):
     _init(self, *a, **k)
     self.p = 0.0
-brand.BrandAspects.__init__ = _no_brand_dropout
+if mode != "step_drop":
+    brand.BrandAspects.__init__ = _no_brand_dropout
 seen = {"dump_s": 0.0}
 _step, _epoch, _datasets = (trainer.train_step, trainer.train_epoch,
                             trainer.build_datasets)
@@ -3106,12 +3145,17 @@ def first_update(model, opt, cfg, state, sb):
         t0 = time.time()
         seen.update(loss=float(metrics["loss"]),
                     grad_norm=float(metrics["grad_norm"]))
+        # every rank takes part in the gathers of a model axis
+        full = model.full_state_dict()
+        names = [n for n, _ in model.named_parameters()]
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = gather_state_dict(grads, model.split_dims())
         if collectives.rank() == 0:
             torch.save({
-                "params": {n: p.detach().cpu()
-                           for n, p in model.named_parameters()},
-                "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
-                "buffers": {n: b.cpu() for n, b in model.named_buffers()},
+                "params": {n: full[n].detach().cpu() for n in names},
+                "grads": {n: grads[n].cpu() for n in names},
+                "buffers": {n: full[n].cpu()
+                            for n, _ in model.named_buffers()},
                 "queue": state.queue.queue.cpu()}, out + ".first.pt")
         seen["dump_s"] = time.time() - t0
     return state, metrics
@@ -3136,6 +3180,38 @@ def ranking(model, brand_num, post_embs, brands, device):
     return _ranking(model, brand_num, post_embs, brands, device)
 if mode == "train":
     got = trainer.main(argv)
+elif mode.startswith("step"):
+    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
+    from fancyrec_tpu_torch.data.loader import BatchLoader, prefetch_to_device
+    from fancyrec_tpu_torch.parallel import distributed
+    from fancyrec_tpu_torch.parallel.mesh import (
+        build_mesh, process_batch_shard)
+    from fancyrec_tpu_torch.train.state import init_state
+    args = build_train_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    device = distributed.initialize_multihost(args.device)
+    mesh = build_mesh(cfg.mesh_shape)
+    ds = trainer.build_datasets(cfg)["train"]
+    cfg.finalize()
+    # the trainer's train loader, model and first super-batch
+    loader = BatchLoader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                         final_batch="drop",
+                         grouped="window" if cfg.length_grouped else "off",
+                         process_shard=process_batch_shard(mesh,
+                                                           cfg.batch_size))
+    model, opt, state = init_state(cfg, device, mesh=mesh)
+    stream = prefetch_to_device(trainer._superbatches(
+        loader, cfg.accumulation_step, cfg.token_buckets_list,
+        cfg.frame_buckets_list, cfg.transfer_dtype), device,
+        trainer._TRAIN_KEYS, size=2)
+    _, sb = next(stream)
+    stream.close()
+    t1 = time.time()
+    first_update(model, opt, cfg, state, sb)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    got = {"update_s": time.time() - t1 - seen["dump_s"],
+           "mesh": [mesh.data, mesh.model]}
 else:
     tester.test_post_ranking = ranking
     got = tester.main(argv)._asdict()
@@ -3143,8 +3219,10 @@ else:
     # and pad posts, each rank its contiguous shard of the columns
     from fancyrec_tpu_torch.eval.metrics import ranking_metrics_sharded
     scores, labels = chip_smoke.tie_scores()
-    n_l = scores.shape[1] // collectives.world_size()
-    cols = slice(collectives.rank() * n_l, (collectives.rank() + 1) * n_l)
+    # the data slots split the columns; a slot's model ranks share its block
+    n_l = scores.shape[1] // collectives.data_size()
+    cols = slice(collectives.data_rank() * n_l,
+                 (collectives.data_rank() + 1) * n_l)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if torch.cuda.is_available() else torch.device("cpu"))
     seen["sharded"] = ranking_metrics_sharded(
@@ -3331,6 +3409,38 @@ def _states_equal(a, b):
     return [k for k in a if not torch.equal(a[k], b[k])]
 
 
+def update_diff(one, other, l_one, l_other):
+    """Two first-update dumps (`_RANK_MAIN`'s .first.pt) and their losses
+    -> (the differences phase 5's card tolerances bound, a log text, within
+    them?): grads per tensor relative to the tensor's largest (floored at
+    1e-4 of the model's largest), params (Adam's first step: 2 lr apart at
+    most), the values that moved apart by more than lr / 2, the BatchNorm
+    statistics and the queue."""
+    top = max(g.abs().max().item() for g in one["grads"].values())
+    rel = {n: (other["grads"][n] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-4 * top)
+           for n, g in one["grads"].items()}
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    p_err = max((other["params"][n] - p).abs().max().item()
+                for n, p in one["params"].items())
+    b_err = max((other["buffers"][n] - b).abs().max().item()
+                for n, b in one["buffers"].items())
+    q_err = (other["queue"] - one["queue"]).abs().max().item()
+    flips = sum(int(((other["params"][n] - p).abs() > LR / 2).sum())
+                for n, p in one["params"].items())
+    text = ("loss %.3g apart; grads max |diff| / max |grad| per tensor %.3g "
+            "(tolerance %g; worst %s); params max |diff| %.3g, %d values "
+            "moved apart by more than lr/2 (tolerance %g); BN statistics "
+            "%.3g, queue %.3g apart"
+            % (abs(l_other - l_one), rel[worst[0]], STEP_TOL,
+               ", ".join("%s %.3g" % (n, rel[n]) for n in worst), p_err,
+               flips, 2 * LR * 1.001, b_err, q_err))
+    ok = (abs(l_other - l_one) <= STEP_TOL * max(1.0, abs(l_one))
+          and rel[worst[0]] <= STEP_TOL and p_err <= 2 * LR * 1.001
+          and b_err <= STEP_TOL and q_err <= STEP_TOL)
+    return text, ok
+
+
 def data_parallel_path(root, dev, sass):
     """Phase 10: data parallelism, --mesh_shape R,1.
       a. the native gather is in use; host data time native vs memmap;
@@ -3422,29 +3532,10 @@ def data_parallel_path(root, dev, sass):
 
     # d. two ranks against one process, the same global batch
     one, dp = first["one"], first["dp2"]
-    l_one, l_dp = runs["one"][0]["loss"], runs["dp2"][0]["loss"]
-    top = max(g.abs().max().item() for g in one["grads"].values())
-    rel = {n: (dp["grads"][n] - g).abs().max().item()
-           / max(g.abs().max().item(), 1e-4 * top)
-           for n, g in one["grads"].items()}
-    worst = sorted(rel, key=rel.get, reverse=True)[:3]
-    p_err = max((dp["params"][n] - p).abs().max().item()
-                for n, p in one["params"].items())
-    b_err = max((dp["buffers"][n] - b).abs().max().item()
-                for n, b in one["buffers"].items())
-    q_err = (dp["queue"] - one["queue"]).abs().max().item()
-    flips = sum(int(((dp["params"][n] - p).abs() > LR / 2).sum())
-                for n, p in one["params"].items())
-    log("10d: %d ranks vs one process, first update: loss %.3g apart; grads "
-        "max |diff| / max |grad| per tensor %.3g (tolerance %g; worst %s); "
-        "params max |diff| %.3g, %d values moved apart by more than lr/2 "
-        "(tolerance %g); BN statistics %.3g, queue %.3g apart"
-        % (DP_RANKS, abs(l_dp - l_one), rel[worst[0]], STEP_TOL,
-           ", ".join("%s %.3g" % (n, rel[n]) for n in worst), p_err, flips,
-           2 * LR * 1.001, b_err, q_err))
-    if not (abs(l_dp - l_one) <= STEP_TOL * max(1.0, abs(l_one))
-            and rel[worst[0]] <= STEP_TOL and p_err <= 2 * LR * 1.001
-            and b_err <= STEP_TOL and q_err <= STEP_TOL):
+    text, ok = update_diff(one, dp, runs["one"][0]["loss"],
+                           runs["dp2"][0]["loss"])
+    log("10d: %d ranks vs one process, first update: %s" % (DP_RANKS, text))
+    if not ok:
         fail("the %d-rank update disagrees with the one-process update"
              % DP_RANKS)
     bests = [r["result"] for r in runs["dp2"]]
@@ -3535,6 +3626,222 @@ def data_parallel_path(root, dev, sass):
     log("data-parallel phase in %.1f s; host data time %s"
         % (time.time() - t_phase, json.dumps(data_time)))
     return {"records": records, "train_counts": sums(runs["dp2"]),
+            "eval_counts": sums(tested), "one_loss": runs["one"][0]["loss"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: tensor parallelism, the model mesh axis
+# ---------------------------------------------------------------------------
+
+TP_MODEL = 2                  # model ranks of 11b-d (two ranks on the card)
+
+
+def check_k2_shards(dev, sass):
+    """11a: K2 on aspect shards of the 2000-aspect table, at M = 2 and 4
+    model ranks, for B = 8 (the recipe's microbatch at (1, M)) and B = 4
+    (at (2, M)): each shard's kernels against their plain versions on the
+    last shard (`check_aspect_dropout`), and for every shard: its forward's
+    keep bits equal the one-table kernel's bits of its aspects bit for bit,
+    and the shards' outputs sum to the one-table kernel's output within
+    K2_TOL. -> {M: the records at M}."""
+    import torch
+    from fancyrec_tpu_torch.ops import brand_dropout as bd
+
+    records = {}
+    for m in (TP_MODEL, 4):
+        records[m] = []
+        for b in (B_TRAIN, B_RANK):
+            records[m] += check_aspect_dropout(dev, b, sass, model_axis=m)[0]
+            g = torch.Generator(device=dev).manual_seed(SEED + 20 + b)
+            w = torch.randn(b, N_ASPECTS, generator=g, device=dev)
+            asp = torch.randn(N_ASPECTS, DIM, generator=g, device=dev)
+            with torch.no_grad():
+                out, bits = bd.aspect_dropout_fwd_cuda(w, asp, K2_SEED, KEEP,
+                                                       with_bits=True)
+                n, total = N_ASPECTS // m, torch.zeros_like(out)
+                for r in range(m):
+                    cols = slice(r * n, (r + 1) * n)
+                    o, sb = bd.aspect_dropout_fwd_cuda(
+                        w[:, cols].contiguous(), asp[cols].contiguous(),
+                        K2_SEED, KEEP, with_bits=True, a_total=N_ASPECTS,
+                        a_off=r * n)
+                    if not torch.equal(sb, bits[:, cols]):
+                        fail("K2 shard %d of %d at B=%d: keep bits differ "
+                             "from the one-table kernel's in %d words"
+                             % (r, m, b, int((sb != bits[:, cols]).sum())))
+                    total += o
+                err = (total - out).abs().max().item()
+            log("11a: K2 at M=%d, B=%d: each of the %d shards' keep bits "
+                "equal the one-table kernel's bits of its aspects bit for "
+                "bit; the shards' outputs sum to the one-table output within "
+                "%.3g (tolerance %g)" % (m, b, m, err, K2_TOL))
+            if not err <= K2_TOL:
+                fail("K2's shard outputs do not sum to the one-table output")
+    return records
+
+
+def tensor_parallel_path(root, dev, sass, l_one):
+    """Phase 11: tensor parallelism, --mesh_shape R,M, on phase 5's tree
+    (after phase 10, whose one-process first update it compares with).
+      a. K2 on aspect shards (`check_k2_shards`);
+      b. the trainer CLI for one recipe epoch at --mesh_shape 1,2, two
+         ranks sharing the card (gloo), every dropout off: its first update
+         (whole, gathered over the model group) within phase 5's card
+         tolerances of phase 10c's one-process update of the same batch,
+         K1-fwd, K1-bwd, K2 (at A = 1000) and K4 launched on each rank; then
+         one update with every dropout on (the brand dropout through K2 on
+         the shards) at (1, 2) against one process from the same seed;
+      c. one update at --mesh_shape 2,2, four ranks on the card, against
+         10c's one-process update;
+      d. the tester CLI at (1, 2) on b's checkpoint: its metrics equal the
+         one-process tester's, and the ranks' sharded metrics of the tie
+         matrix the oracle's.
+    l_one: the loss of 10c's one-process first update.
+    -> {"records": the K2 shard records of the paths, "m4": the K2 records
+    at M = 4 (on no main path), "train_counts", "step_counts",
+    "eval_counts"}, the counts summed over b's, c's and d's ranks."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.eval import tester
+    from fancyrec_tpu_torch.eval.metrics import ranking_metrics_oracle
+
+    t_phase = time.time()
+    shard_recs = check_k2_shards(dev, sass)
+    records = []
+    for r in shard_recs[TP_MODEL]:
+        r["path"] = ("tensor-parallel training" if r["shape"][0] == B_TRAIN
+                     else "tensor-parallel step 2x2")
+        records.append(r)
+    torch.cuda.empty_cache()
+    one = torch.load(os.path.join(root, "dp_one.first.pt"))
+    flags = ["--device", str(dev)]
+    off = ["--dropout", "0", "--bert_dropout", "0"]
+    shape = "1,%d" % TP_MODEL
+
+    # b. the trainer CLI at (1, 2), dropouts off
+    tp = run_ranks("train", os.path.join(root, "tp_12"), instance_args(
+        root, "tp_12", 1) + flags + off + ["--mesh_shape", shape], TP_MODEL)
+    micro = tp[0]["updates"] * ACCUM
+    for r in tp:
+        log("11b: trainer at --mesh_shape %s, rank %d/%d (%s, device %s): %d "
+            "updates, %.1f ms per update (the first update's dump excluded), "
+            "device peak %.2f GB, %.1f s wall; first update loss %.6f, grad "
+            "norm %.6f; launches %s"
+            % (shape, r["rank"], r["world"], r["backend"], r["device"],
+               r["updates"], r["ms_per_update"], r["peak_bytes"] / 1e9,
+               r["wall_s"], r["loss"], r["grad_norm"], r["counts"]))
+        c = r["counts"]
+        if not (c["gru_scan"] >= micro and c["gru_scan_bwd"] == micro
+                and c["aspect_dropout_fwd"] == micro
+                and c["aspect_dropout_bwd"] == micro
+                and c["cosine_scores"] == 1):
+            fail("rank %d launched %s for %d microbatches and one "
+                 "validation" % (r["rank"], c, micro))
+    if len({r["result"] for r in tp}) != 1:
+        fail("the model ranks report different bests: %s"
+             % [r["result"] for r in tp])
+    text, ok = update_diff(one, torch.load(os.path.join(
+        root, "tp_12.first.pt")), l_one, tp[0]["loss"])
+    log("11b: (1, %d) vs one process (phase 10c), first update: %s"
+        % (TP_MODEL, text))
+    if not ok:
+        fail("the (1, %d) update disagrees with the one-process update"
+             % TP_MODEL)
+    # the same with every dropout on, one update from the same seed
+    drop = {}
+    for name, ranks, extra in (("one", 0, []),
+                               ("tp", TP_MODEL, ["--mesh_shape", shape])):
+        drop[name] = run_ranks("step_drop", os.path.join(
+            root, "tpd_" + name), instance_args(root, "tpd_" + name, 1)
+            + flags + extra, ranks)
+    text, ok = update_diff(
+        torch.load(os.path.join(root, "tpd_one.first.pt")),
+        torch.load(os.path.join(root, "tpd_tp.first.pt")),
+        drop["one"][0]["loss"], drop["tp"][0]["loss"])
+    log("11b: every dropout on (towers 0.2, BERT 0.1, brand 0.5 in K2 on the "
+        "shards), (1, %d) vs one process from the same seed: %s; K2 "
+        "launches %s; update %.2f s (one) / %.2f s (rank 0, the first "
+        "update of a process); device peak %.2f / %.2f GB"
+        % (TP_MODEL, text, [r["counts"]["aspect_dropout_fwd"]
+                            for r in drop["tp"]],
+           drop["one"][0]["result"]["update_s"],
+           drop["tp"][0]["result"]["update_s"],
+           drop["one"][0]["peak_bytes"] / 1e9,
+           drop["tp"][0]["peak_bytes"] / 1e9))
+    if not ok:
+        fail("the (1, %d) update with dropouts on disagrees with one "
+             "process's" % TP_MODEL)
+
+    # c. (2, 2): four ranks, one update
+    step = run_ranks("step", os.path.join(root, "tp_22"), instance_args(
+        root, "tp_22", 1) + flags + off + ["--mesh_shape", "2,%d" % TP_MODEL],
+        2 * TP_MODEL)
+    text, ok = update_diff(one, torch.load(os.path.join(
+        root, "tp_22.first.pt")), l_one, step[0]["loss"])
+    log("11c: (2, %d) vs one process (phase 10c), first update: %s; per "
+        "rank: device peak %s GB, update %s s (the first of a process), "
+        "launches %s"
+        % (TP_MODEL, text, ["%.2f" % (r["peak_bytes"] / 1e9) for r in step],
+           ["%.2f" % r["result"]["update_s"] for r in step],
+           [r["counts"] for r in step]))
+    if not ok:
+        fail("the (2, %d) update disagrees with the one-process update"
+             % TP_MODEL)
+    for r in step:
+        c = r["counts"]
+        if not (c["aspect_dropout_fwd"] == ACCUM
+                and c["aspect_dropout_bwd"] == ACCUM
+                and c["gru_scan_bwd"] == ACCUM):
+            fail("(2, %d) rank %d launched %s for %d microbatches"
+                 % (TP_MODEL, r["rank"], c, ACCUM))
+    del one
+
+    # d. the tester at (1, 2) on b's checkpoint, against this process's
+    logdir = os.path.join(root, "model", "tp_12")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
+             "1"]
+    tested = run_ranks("test", os.path.join(root, "tp_test"),
+                       targv + ["--mesh_shape", shape], TP_MODEL)
+    t0 = time.time()
+    single = tester.main(targv)._asdict()
+    single_s = time.time() - t0
+    rank_keys, score_keys = ("medr", "meanr", "r1", "r5", "r10"), (
+        "auc", "ndcg10", "ndcg50")
+    got = tested[0]["result"]
+    diff = max(abs(got[k] - single[k]) for k in score_keys)
+    scores, labels = tie_scores()
+    live = labels >= 0
+    want = {k: float(v) for k, v in ranking_metrics_oracle(
+        scores[:, live], labels[live], scores.shape[0])._asdict().items()}
+    for r in tested:
+        log("11d: tester at --mesh_shape %s, rank %d/%d: %.2f s wall, device "
+            "peak %.2f GB; %s; launches %s"
+            % (shape, r["rank"], r["world"], r["wall_s"],
+               r["peak_bytes"] / 1e9, r["result"], r["counts"]))
+        if not all(r["counts"][k] >= 1 for k in ("gru_scan", "cosine_scores")):
+            fail("tester rank %d launched %s" % (r["rank"], r["counts"]))
+    log("11d: the one-process tester on the same checkpoint: %.2f s wall; %s; "
+        "rank metrics %s, AUC/NDCG max |diff| %.3g (tolerance 1e-6); the "
+        "ranks' sharded tie-matrix metrics %s the oracle's"
+        % (single_s, single, "equal" if all(got[k] == single[k]
+                                            for k in rank_keys) else "DIFFER",
+           diff, "equal to" if all(r["sharded"] == want for r in tested)
+           else "DIFFERENT from"))
+    if any(r["result"] != got for r in tested):
+        fail("the tester's model ranks report different metrics")
+    if not all(r["sharded"] == want for r in tested):
+        fail("the sharded metrics at (1, %d) differ from the oracle's"
+             % TP_MODEL)
+    if not (all(got[k] == single[k] for k in rank_keys) and diff <= 1e-6
+            and all(math.isfinite(v) for v in got.values())):
+        fail("the (1, %d) tester's metrics %s differ from one process's %s"
+             % (TP_MODEL, got, single))
+    sums = lambda rs: {k: sum(r["counts"][k] for r in rs)  # noqa: E731
+                       for k in rs[0]["counts"]}
+    log("tensor-parallel phase in %.1f s" % (time.time() - t_phase))
+    return {"records": records, "m4": shard_recs[4],
+            "train_counts": sums(tp), "step_counts": sums(step),
             "eval_counts": sums(tested)}
 
 
@@ -3657,6 +3964,11 @@ def main():
         # tester over two ranks (each rank counts its own launches)
         dp = data_parallel_path(root, dev, sass)
         kernels += dp["records"]
+        torch.cuda.empty_cache()
+        # 11. tensor parallelism: K2 on aspect shards, the trainer at (1, 2)
+        # and one update at (2, 2), the tester at (1, 2)
+        tp = tensor_parallel_path(root, dev, sass, dp["one_loss"])
+        kernels += tp["records"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
@@ -3666,7 +3978,10 @@ def main():
              "evaluation": evaluation, "fast training": fast,
              "IVF serving": ivf_serving, "artifact": artifact,
              "data-parallel training": dp["train_counts"],
-             "data-parallel evaluation": dp["eval_counts"]}
+             "data-parallel evaluation": dp["eval_counts"],
+             "tensor-parallel training": tp["train_counts"],
+             "tensor-parallel step 2x2": tp["step_counts"],
+             "tensor-parallel evaluation": tp["eval_counts"]}
     # K1-fwd also runs inside the exported programs, K3 on the IVF path's
     # exact single-brand queries: their records count those launches too
     home = {"gru_scan": "serving+artifact", "topk_int8": "serving+IVF serving",
@@ -3679,7 +3994,7 @@ def main():
         if min(by_path.values()) < 1:
             fail("%s was not launched on its main path: %s"
                  % (k["name"], by_path))
-        if len(by_path) > 1:
+        if len(by_path) > 1 or "tensor-parallel" in k["path"]:
             k["launches_by_path"] = by_path
     # the bf16 K1 runs on no main path: its numbers go on a line of their own
     for k in k1_bf16:
@@ -3689,12 +4004,19 @@ def main():
     log("K1 in bfloat16, on no main path (the fast mode runs K1 in float32, "
         "as the JAX package does): %s"
         % json.dumps([{k: r[k] for k in keys} for r in k1_bf16]))
+    # K2 on the aspect shards of a model axis of 4: checked, on no main
+    # path (phase 11 runs model axes of 2)
+    log("K2 on aspect shards of M=4, on no main path: %s" % json.dumps(
+        [{k: r[k] for k in keys[:4] + keys[5:] + ("entry_ms", "device_ms",
+                                                  "shape", "a_off")}
+         for r in tp["m4"]]))
 
     # the contract's keys, then, where a record has them, its C entry's time
     # on buffers made once, its kernels' device time, and its path
     print(json.dumps({"kernels": [
         {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path",
-                                     "launches_by_path")
+                                     "launches_by_path", "shape", "a_total",
+                                     "a_off")
          if k in kern}
         for kern in kernels]}))
     print(smi_line)

@@ -2,11 +2,11 @@
 
 The same dataclass and the same JSON form as `fancyrec_tpu.config`, so a
 config written by either package loads in the other. `mesh_shape` lays
-the ranks of a world on the data axis (`parallel/mesh.py`); the fields the
-port does not implement yet (a model axis, sequence sharding, pipelining)
-or that only steer JAX (the XLA compile cache, the dropout PRNG) are kept
-for that interchange, and the training CLI refuses them at any value but
-their default.
+the ranks of a world out as the (data, model) mesh (`parallel/mesh.py`);
+the fields the port does not implement yet (sequence sharding,
+pipelining) or that only steer JAX (the XLA compile cache, the dropout
+PRNG) are kept for that interchange, and the training CLI refuses them at
+any value but their default.
 """
 
 from __future__ import annotations
@@ -428,7 +428,8 @@ def build_train_parser() -> argparse.ArgumentParser:
 # the port), its dropout PRNG choice and its XLA compile cache
 _NOT_PORTED = {
     "seq_shard": (False, "sequence sharding (--seq_shard) is a later slice "
-                  "of the PyTorch port"),
+                  "of the PyTorch port (ROADMAP.md section 1, still to "
+                  "port, item 1)"),
     "rng_impl": ("threefry", "--rng_impl picks a JAX PRNG; the port draws "
                  "dropout from torch generators"),
     "compilation_cache_dir": ("", "--compilation_cache_dir is XLA's compile "
@@ -438,8 +439,8 @@ _NOT_PORTED = {
 
 def config_from_args(args: argparse.Namespace) -> Config:
     """The parsed flags -> Config. Raises NotImplementedError for a flag the
-    port does not implement, set to anything but off, and for a
-    --mesh_shape with a model axis above 1 (tensor parallelism)."""
+    port does not implement, set to anything but off, and ValueError for a
+    malformed --mesh_shape."""
     vals = vars(args)
     for flag, (off, why) in _NOT_PORTED.items():
         if vals.get(flag, off) != off:
@@ -449,7 +450,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if vals.get("pp_stages", 0) > 1:
         raise NotImplementedError(
             "--pp_stages is not implemented by the PyTorch port (got %r): "
-            "the GPipe BERT schedule is a later slice" % vals["pp_stages"])
+            "the GPipe BERT schedule is a later slice (ROADMAP.md section "
+            "1, still to port, item 2)" % vals["pp_stages"])
     parse_mesh_shape(vals.get("mesh_shape", ""))
     known = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in vals.items() if k in known})

@@ -18,6 +18,14 @@
 // e = (b A + a) C + c: a pure function of the element, not of the launch
 // geometry. The mask follows the batch row b, not the brand id.
 //
+// An aspect shard (tensor parallelism: a model rank holds aspects
+// [a_off, a_off + A) of a table of A_total) draws the counters of its
+// global aspects in the whole table, e = (b A_total + a_off + a) C + c, so
+// the shards' masks are the slices of the table's mask; the caller's scale
+// is 1 / (A_total keep), and the shards' outputs sum to the table's. w, asp
+// and the bits are the shard's own: their rows and strides are the local
+// A. The backward reads the shard's bits and needs no global index.
+//
 // The forward draws the mask and writes it as bits: `bits` is int32
 // (B, A, ceil(C / 32)), bit c & 31 of word c >> 5 in row (b, a) set where
 // element (b, a, c) is kept, the tail bits past C zero. The backward reads
@@ -183,15 +191,16 @@ constexpr int F_ROWS = 8;         // batch rows a block: 8 nibbles a word
 constexpr int F_MAX_SPAN = 256;   // aspects a split, at most
 
 // grid (ceil(C / F_COLS), splits, ceil(B / F_ROWS)). Block (x, y, z) sums
-// aspects [y span, (y + 1) span) of rows [8 z, 8 z + 8) and columns
+// local aspects [y span, (y + 1) span) of rows [8 z, 8 z + 8) and columns
 // [128 x, 128 x + 128) into part[y][b][128 x ...] (rows of CP = 128
-// gridDim.x floats), and writes those rows' and aspects' keep bits. FAST:
+// gridDim.x floats), and writes those rows' and aspects' keep bits. The
+// counters are of global aspect a_off + a in a table of A_total. FAST:
 // C % 4 == 0 and every counter below 2^32.
 template <bool FAST, bool BITS>
 __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
     const float* __restrict__ w, const float* __restrict__ asp,
     float* __restrict__ part, uint32_t* __restrict__ bits, int B, int A,
-    int C, int span, uint2 key, uint32_t thr) {
+    int C, int A_total, int a_off, int span, uint2 key, uint32_t thr) {
   __shared__ float4 ws[F_MAX_SPAN][F_ROWS / 4];        // w of the span
   __shared__ float4 red[F_WARPS][F_ROWS][32];          // the warps' sums
   let_dependents_start();
@@ -233,7 +242,7 @@ __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
   const int words = (C + 31) / 32;
   const int word = blockIdx.x * (F_COLS / 32) + lane / 8;
   const uint32_t cq = static_cast<uint32_t>(C) / 4;
-  const uint32_t row_q = static_cast<uint32_t>(A) * cq;
+  const uint32_t row_q = static_cast<uint32_t>(A_total) * cq;
 
   float acc[F_ROWS][4];
 #pragma unroll
@@ -250,7 +259,7 @@ __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
                               w_hi.x, w_hi.y, w_hi.z, w_hi.w};
     uint32_t nib = 0;   // nibble r: the keep bits of row b0 + r
     if (FAST) {
-      const uint32_t qa = static_cast<uint32_t>(a) * cq +
+      const uint32_t qa = static_cast<uint32_t>(a_off + a) * cq +
                           static_cast<uint32_t>(c0) / 4 +
                           static_cast<uint32_t>(b0) * row_q;
       // rows past B (w zero) are drawn too: the 8 chains stay in one
@@ -268,7 +277,8 @@ __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
       for (int r = 0; r < F_ROWS; ++r) {
         if (b0 + r >= B) continue;
         const uint32_t m = keep4_any(
-            ((uint64_t)(b0 + r) * A + a) * C + c0, rk, thr, aligned);
+            ((uint64_t)(b0 + r) * A_total + a_off + a) * C + c0, rk, thr,
+            aligned);
         if (m & 1u) acc[r][0] = fmaf(wv[r], av.x, acc[r][0]);
         if (m & 2u) acc[r][1] = fmaf(wv[r], av.y, acc[r][1]);
         if (m & 4u) acc[r][2] = fmaf(wv[r], av.z, acc[r][2]);
@@ -587,17 +597,21 @@ __global__ void __launch_bounds__(B_THREADS, 2) adm_bwd_stream(
 }  // namespace
 
 // Returns a CUDA error code (0 on success); launches on `stream`, does not
-// synchronise. seed0, seed1: the two key words. `bits` may be null: no keep
+// synchronise. seed0, seed1: the two key words. w and asp hold aspects
+// [a_off, a_off + A) of a table of A_total (the whole table: A_total = A,
+// a_off = 0); scale is 1 / (A_total keep). `bits` may be null: no keep
 // bits are written. `scratch` holds splits x B x CP floats (CP: C rounded
 // up to 128), `span` aspects a split, as `aspect_dropout_plan` gives them;
-// a plan that does not cover A once, or a scratch too small, is refused.
+// a plan that does not cover A once, a scratch too small, or a shard
+// outside its table, is refused.
 extern "C" int aspect_dropout_fwd(const void* w, const void* asp, void* out,
                                   void* bits, void* scratch,
                                   long long scratch_floats, int B, int A,
-                                  int C, int splits, int span, unsigned seed0,
-                                  unsigned seed1, unsigned thr, float scale,
-                                  void* stream) {
+                                  int C, int A_total, int a_off, int splits,
+                                  int span, unsigned seed0, unsigned seed1,
+                                  unsigned thr, float scale, void* stream) {
   if (B <= 0 || A <= 0 || C <= 0 || span <= 0 || span > F_MAX_SPAN ||
+      a_off < 0 || (long long)a_off + A > A_total ||
       splits <= 0 || splits > 65535 || (B + F_ROWS - 1) / F_ROWS > 65535 ||
       (long long)splits * span < A || (long long)(splits - 1) * span >= A)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -606,7 +620,7 @@ extern "C" int aspect_dropout_fwd(const void* w, const void* asp, void* out,
   if (scratch_floats < (long long)splits * B * cp)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool fast = (C & 3) == 0 &&
-                    (unsigned long long)B * A * (C / 4) <= (1ull << 32);
+                    (unsigned long long)B * A_total * (C / 4) <= (1ull << 32);
   const dim3 grid(tiles, splits, (B + F_ROWS - 1) / F_ROWS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w);
@@ -616,16 +630,16 @@ extern "C" int aspect_dropout_fwd(const void* w, const void* asp, void* out,
   const uint2 key = make_uint2(seed0, seed1);
   if (fast && bp)
     adm_fwd_kernel<true, true><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
   else if (fast)
     adm_fwd_kernel<true, false><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
   else if (bp)
     adm_fwd_kernel<false, true><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
   else
     adm_fwd_kernel<false, false><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

@@ -9,7 +9,10 @@ R ranks with a process-sharded loader, each rank encodes its slice of
 every batch and the slices are all-gathered; the ranking then splits the
 posts into R shards, each rank scores its own with the cosine kernel, and
 `metrics.ranking_metrics_sharded` computes the exact metrics without
-gathering the (brands, posts) matrix. Post
+gathering the (brands, posts) matrix. Under a (data=R, model=M) mesh all
+of this runs over the data group: the M model ranks of a slot encode the
+same rows (each with its part of the split weights) and score the same
+post shard. Post
 embeddings leave the towers as float32 (a bfloat16 model's are upcast,
 exactly), as the JAX package collects them into float32 buffers: the
 cosine kernel, the index's int8 quantization and the files on disk take
@@ -134,13 +137,13 @@ def test_post_ranking(model, brand_num: int, post_embs, brands,
     """The brands x posts cosine matrix on `device` and its ranking
     metrics (the reference evaluator's test_post_ranking).
 
-    In a world of R ranks (every rank holding all the embeddings, as
+    Over R data slots (every rank holding all the embeddings, as
     encode_data leaves them) the posts are padded to a multiple of R (pad
     posts labelled -1, which the metrics exclude) and split into R
-    contiguous shards; each rank scores its own shard with the cosine
+    contiguous shards; each slot scores its own shard with the cosine
     kernel, and the exact metrics come from ranking_metrics_sharded."""
     aspects = brand_embeddings(model, brand_num, device)
-    ranks = collectives.world_size()
+    ranks = collectives.data_size()
     if ranks <= 1:
         scores = cosine_scores(aspects,
                                torch.as_tensor(post_embs, device=device))
@@ -153,7 +156,7 @@ def test_post_ranking(model, brand_num: int, post_embs, brands,
             [post_embs, np.ones((pad, post_embs.shape[1]), np.float32)])
         brands = np.concatenate([brands, np.full(pad, -1, np.int64)])
     n_l = post_embs.shape[0] // ranks
-    lo = collectives.rank() * n_l
+    lo = collectives.data_rank() * n_l
     scores = cosine_scores(aspects, torch.as_tensor(
         post_embs[lo:lo + n_l], device=device))
     return ranking_metrics_sharded(scores, brands[lo:lo + n_l], brand_num)

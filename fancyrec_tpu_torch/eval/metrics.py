@@ -7,10 +7,10 @@ same semantics:
     (one stable sort a brand row for AUC, one for NDCG), the final scalars
     assembled in float64 on the host, as the JAX package's sharded variant
     does;
-  * ranking_metrics_sharded: each rank of a world holds a contiguous
-    shard of the posts' columns, and only the posts' own-brand scores,
-    each shard's top-50 a brand and summed count vectors cross ranks --
-    never the (brands, posts) matrix. Its counts are integers and its
+  * ranking_metrics_sharded: each data slot of a world holds a
+    contiguous shard of the posts' columns, and only the posts' own-brand
+    scores, each shard's top-50 a brand and summed count vectors cross the
+    data group -- never the (brands, posts) matrix. Its counts are integers and its
     assembly repeats the oracle's float64 arithmetic, so it equals the
     oracle exactly.
 
@@ -300,7 +300,7 @@ def _sharded_brand_stats(scores_l: torch.Tensor, brands_l: torch.Tensor,
     is_star = valid_g & (d_g == p_star[lab_g])
     idx_star = torch.full((brand_num,), n_total, device=dev).scatter_reduce(
         0, lab_g, torch.where(is_star, gidx_g, n_total), "amin")
-    gidx = collectives.rank() * n_l + torch.arange(n_l, device=dev)
+    gidx = collectives.data_rank() * n_l + torch.arange(n_l, device=dev)
     live = ~pad_l[None, :]
     ahead = (((scores_l > p_star[:, None]) & live).sum(1)
              + ((scores_l == p_star[:, None]) & live
@@ -330,7 +330,8 @@ def ranking_metrics_sharded(scores_l: torch.Tensor, brands_l,
     """Exact ranking metrics over the post shards of a world.
 
     scores_l: this rank's (brands, n_l) block of the score matrix, its
-    posts a contiguous shard in rank order (every rank's n_l the same; pad
+    posts a contiguous shard in data-slot order (the model ranks of a slot
+    hold the same block; every slot's n_l the same; pad
     posts labelled -1 in brands_l). Every rank gets the oracle's metrics
     for the live posts of all shards. The final assembly runs in float64
     on the host with the oracle's own arithmetic (AUC as an integer pair

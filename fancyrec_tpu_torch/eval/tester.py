@@ -14,7 +14,10 @@ In a world of R ranks (`torchrun --nproc_per_node R -m
 fancyrec_tpu_torch.eval.tester ... --mesh_shape R,1`), each rank encodes
 its 1/R of every batch and scores its 1/R of the posts, and the metrics
 are exact (`metrics.ranking_metrics_sharded`); the exits follow the
-primary and only the primary writes mean_metrics.json.
+primary and only the primary writes mean_metrics.json. At --mesh_shape
+R,M over R*M ranks the model ranks of a slot split the weights as the
+trainer's do (one model code path: the checkpoint's whole tree cut to the
+rank's shard), and the slots split the rows and posts as above.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--level_vis", type=str, default="1+2+3")
     p.add_argument("--level_txt", type=str, default="1+2+3")
     p.add_argument("--bert_vocab", type=str, default="")
-    # "" = every rank of the world on data; "R,1" for a world of R
+    # "" = every rank of the world on data; "R,M" for a world of R*M
     p.add_argument("--mesh_shape", type=str, default="")
     # the JAX package's XLA compile cache: refused unless empty
     p.add_argument("--compilation_cache_dir", type=str, default="")
@@ -78,6 +81,10 @@ def main(argv=None):
     print(json.dumps(vars(opt), indent=2))
     mesh = build_mesh(opt.mesh_shape)
     require_divisible_batch(mesh, opt.batch_size)
+    if mesh.data * mesh.model > 1:
+        print("mesh: data=%d, model=%d; rank %d (data %d, model %d) on %s"
+              % (mesh.data, mesh.model, mesh.rank, mesh.data_rank,
+                 mesh.model_rank, device))
 
     # the exits follow the primary, whose files are the truth: a rank that
     # exited alone would leave the others waiting in a collective
@@ -151,8 +158,8 @@ def main(argv=None):
                          process_shard=process_batch_shard(
                              mesh, opt.batch_size))
 
-    model = FancyRec(cfg)
-    model.load_state_dict(ckpt["state_dict"])
+    model = FancyRec(cfg, mesh)
+    model.load_full_state_dict(ckpt["state_dict"])
     model.to(device).eval()
     brands, post_embs = encode_data(model, loader, cfg.common_embedding_size,
                                     device,

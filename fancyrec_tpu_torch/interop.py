@@ -25,6 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from fancyrec_tpu_torch.parallel.mesh import shard_state_dict
+
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
@@ -81,13 +83,18 @@ def torch_state_from_jax(params: Mapping, batch_stats: Mapping = None
 
 
 def load_jax_variables(model: nn.Module, params: Mapping,
-                       batch_stats: Mapping = None) -> nn.Module:
+                       batch_stats: Mapping = None, mesh=None) -> nn.Module:
     """Fill `model` (a port FancyRec or ResNetFeatures) from the JAX
-    package's variables.
+    package's variables. With `mesh` (default: the model's own, a FancyRec
+    built for a model rank) the full trees are cut to the rank's shard
+    (`parallel.mesh.shard_state_dict`), as a checkpoint is.
 
     Strict: every port parameter and buffer must be covered and every JAX
     leaf must land, with matching shapes."""
     state = torch_state_from_jax(params, batch_stats)
+    mesh = getattr(model, "mesh", None) if mesh is None else mesh
+    if mesh is not None and mesh.model > 1:
+        state = shard_state_dict(state, mesh)
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

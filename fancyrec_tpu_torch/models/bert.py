@@ -16,6 +16,15 @@ bfloat16 operands; softmax, the mask and the LayerNorms (whose float32
 scale promotes their output) in float32. `remat` recomputes each layer in
 the backward pass (torch.utils.checkpoint), replaying the dropout
 generators' draws (`_remat_layer`).
+
+Tensor parallelism (`ffn_shard`: this model rank's (offset, size) of the
+intermediate width): Megatron's FFN, as the JAX package's rules split it.
+`intermediate` holds the shard's output rows (column-parallel, its bias
+split too) and takes its input through `collectives.model_copy`;
+`output` holds the same columns of its weight (row-parallel,
+`layers.row_parallel`: partial products summed over the model group, then
+its replicated bias). Under `remat` the recompute issues the same
+collectives again, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fancyrec_tpu_torch.models.layers import Dropout, dense
+from fancyrec_tpu_torch.models.layers import Dropout, dense, row_parallel
+from fancyrec_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +92,17 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, ffn_shard=None):
         super().__init__()
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.dt = cfg.dt
+        self.ffn_shard = ffn_shard
+        ffn = cfg.intermediate_size if ffn_shard is None else ffn_shard[1]
         self.attention = BertSelfAttention(cfg)
         self.attention_output = nn.Linear(d, d)
         self.attention_ln = nn.LayerNorm(d, eps=eps)
-        self.intermediate = nn.Linear(d, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, d)
+        self.intermediate = nn.Linear(d, ffn)
+        self.output = nn.Linear(ffn, d)
         self.output_ln = nn.LayerNorm(d, eps=eps)
         self.attention_drop = Dropout(cfg.hidden_dropout_prob)
         self.output_drop = Dropout(cfg.hidden_dropout_prob)
@@ -100,10 +112,15 @@ class BertLayer(nn.Module):
         attn_out = self.attention_drop(
             dense(self.attention_output, ctx, self.dt))
         hidden = self.attention_ln((hidden + attn_out).float())
-        inter = F.gelu(dense(self.intermediate, hidden, self.dt),
-                       approximate="none")
-        out = self.output_drop(dense(self.output, inter, self.dt))
-        return self.output_ln((hidden + out).float())
+        if self.ffn_shard is None:
+            inter = F.gelu(dense(self.intermediate, hidden, self.dt),
+                           approximate="none")
+            out = dense(self.output, inter, self.dt)
+        else:
+            inter = F.gelu(dense(self.intermediate, collectives.model_copy(
+                hidden), self.dt), approximate="none")
+            out = row_parallel(self.output, inter, self.dt)
+        return self.output_ln((hidden + self.output_drop(out)).float())
 
 
 def _remat_layer(layer: BertLayer, hidden, attn_bias):
@@ -138,9 +155,10 @@ def _remat_layer(layer: BertLayer, hidden, attn_bias):
 
 
 class BertEncoder(nn.Module):
-    """input_ids, token_type_ids, attention_mask -> last_hidden (B, T, H)."""
+    """input_ids, token_type_ids, attention_mask -> last_hidden (B, T, H).
+    ffn_shard: this model rank's part of every layer's FFN (`BertLayer`)."""
 
-    def __init__(self, cfg: BertConfig = BertConfig()):
+    def __init__(self, cfg: BertConfig = BertConfig(), ffn_shard=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
@@ -152,7 +170,7 @@ class BertEncoder(nn.Module):
         self.embeddings_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.embeddings_drop = Dropout(cfg.hidden_dropout_prob)
         for i in range(cfg.num_hidden_layers):
-            setattr(self, "layer_%d" % i, BertLayer(cfg))
+            setattr(self, "layer_%d" % i, BertLayer(cfg, ffn_shard))
 
     def forward(self, input_ids, token_type_ids, attention_mask):
         t = input_ids.shape[1]

@@ -14,6 +14,11 @@ dtype of their input, which is float32 in both towers (the frames, and
 the rows of the float32 word table), as in the JAX package, whose
 `BiGRU.dtype` is never read; so under bfloat16 the level concat is
 float32 and a mapped tower's output bfloat16.
+
+Tensor parallelism: `mapping_shard` is this model rank's part of the
+mapping MFC's input features (row-parallel fc1), `ffn_shard` its part of
+BERT's FFN width; None keeps them whole. The GRUs, the attention pool and
+the conv banks are replicated.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ class VisualEncoder(nn.Module):
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
                  dropout: float = 0.2, attn_fusion: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mapping_shard=None):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.dtype = dtype
@@ -77,7 +82,7 @@ class VisualEncoder(nn.Module):
         self.rnn = BiGRU(feat_dim, rnn_size, packed=False)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes, dtype)
         self.visual_mapping = (None if attn_fusion else MFC(
-            mapping_in, mapping_out, dropout, dtype))
+            mapping_in, mapping_out, dropout, dtype, mapping_shard))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
@@ -113,7 +118,7 @@ class TextGruEncoder(nn.Module):
                  mapping_in: int, mapping_out: int, concate: str = "full",
                  norm: bool = False, dropout: float = 0.2,
                  attn_fusion: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mapping_shard=None):
         super().__init__()
         self.concate, self.norm = concate, norm
         self.dtype = dtype
@@ -121,7 +126,7 @@ class TextGruEncoder(nn.Module):
         self.rnn = BiGRU(word_dim, rnn_size, packed=True)
         self.convs = ConvBank(2 * rnn_size, kernel_num, kernel_sizes, dtype)
         self.text_mapping = (None if attn_fusion else MFC(
-            mapping_in, mapping_out, dropout, dtype))
+            mapping_in, mapping_out, dropout, dtype, mapping_shard))
         self.gru_drop = Dropout(dropout)
         self.con_drop = Dropout(dropout)
 
@@ -153,14 +158,15 @@ class TextTransformersEncoder(nn.Module):
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
                  dropout: float = 0.2, attn_fusion: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mapping_shard=None,
+                 ffn_shard=None):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
-        self.bert = BertEncoder(bert)
+        self.bert = BertEncoder(bert, ffn_shard)
         self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes,
                               dtype)
         self.text_mapping = (None if attn_fusion else MFC(
-            mapping_in, mapping_out, dropout, dtype))
+            mapping_in, mapping_out, dropout, dtype, mapping_shard))
         self.con_drop = Dropout(dropout)
 
     def forward(self, t: TextBatch):

@@ -12,12 +12,20 @@ the brand embedding in float32. `model.eval()` is the JAX
 package's deterministic=True; `model.train()` turns on the dropouts and
 the projection head's batch statistics, after `seed_dropout` has given
 the dropouts their generators.
+
+`mesh` (a `parallel.mesh.Mesh` with a model axis above 1) builds this
+model rank's part of the model: each module at its local widths, split as
+the JAX package's `_PARAM_RULES` split the parameters (the brand tables'
+aspects, the mapping MFCs' input features, BERT's FFN width), with the
+model group's collectives in its forward. Its state dict is the shard of
+the full one (`parallel.mesh.shard_state_dict`); `split_dims` names the
+split tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -31,20 +39,26 @@ from fancyrec_tpu_torch.models.encoders import (
 from fancyrec_tpu_torch.models.fusion import (
     FusionAttnReduction, FusionFC, FusionProjectionHead)
 from fancyrec_tpu_torch.models.layers import Dropout
+from fancyrec_tpu_torch.parallel.mesh import (
+    Mesh, gather_state_dict, param_shardings, shard_state_dict)
 
 
 class FancyRec(nn.Module):
     """brand ids + visual batch + text batch -> (brand_embs, post_embs)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, mesh: Optional[Mesh] = None):
         super().__init__()
         if cfg.fusion_style not in ("fc", "ph", "attn"):
             raise ValueError("unknown fusion_style: %s" % cfg.fusion_style)
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        self._split = None
+        part = self.mesh.part if self.mesh else (lambda n: None)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         attn_fusion = cfg.fusion_style == "attn"
         self.brand_encoding = BrandAspects(
-            cfg.brand_num, cfg.brand_aspect, cfg.common_embedding_size)
+            cfg.brand_num, cfg.brand_aspect, cfg.common_embedding_size,
+            part(cfg.brand_aspect))
         if not cfg.single_modal_text:
             self.vid_encoding = VisualEncoder(
                 rnn_size=cfg.visual_rnn_size, feat_dim=cfg.visual_feat_dim,
@@ -53,7 +67,8 @@ class FancyRec(nn.Module):
                 mapping_in=cfg.visual_mapping_in,
                 mapping_out=cfg.visual_mapping_size, concate=cfg.concate,
                 level=cfg.level_vis, norm=cfg.visual_norm,
-                dropout=cfg.dropout, attn_fusion=attn_fusion, dtype=dtype)
+                dropout=cfg.dropout, attn_fusion=attn_fusion, dtype=dtype,
+                mapping_shard=part(cfg.visual_mapping_in))
         if not cfg.single_modal_visual:
             if cfg.text_net == "bi-gru":
                 self.text_encoding = TextGruEncoder(
@@ -64,7 +79,8 @@ class FancyRec(nn.Module):
                     mapping_in=cfg.text_mapping_in,
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
                     norm=cfg.text_norm, dropout=cfg.dropout,
-                    attn_fusion=attn_fusion, dtype=dtype)
+                    attn_fusion=attn_fusion, dtype=dtype,
+                    mapping_shard=part(cfg.text_mapping_in))
             elif cfg.text_net == "transformers":
                 self.text_encoding = TextTransformersEncoder(
                     bert=BertConfig(
@@ -85,7 +101,8 @@ class FancyRec(nn.Module):
                     mapping_out=cfg.text_mapping_size, concate=cfg.concate,
                     level=cfg.level_txt, norm=cfg.text_norm,
                     dropout=cfg.dropout, attn_fusion=attn_fusion,
-                    dtype=dtype)
+                    dtype=dtype, mapping_shard=part(cfg.text_mapping_in),
+                    ffn_shard=part(cfg.bert_intermediate_size))
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
@@ -101,6 +118,33 @@ class FancyRec(nn.Module):
                 self.fusion_encoding = FusionProjectionHead(
                     fused_in, cfg.common_embedding_size,
                     prj_head_output=cfg.prj_head_output, dtype=dtype)
+
+    def split_dims(self) -> Dict[str, Optional[int]]:
+        """{state-dict name: the dim of the full tensor that the model axis
+        splits, or None}: `parallel.mesh.param_shardings` of the full
+        model's shapes (built on the meta device, no memory)."""
+        if self._split is None:
+            if self.mesh is None:
+                self._split = {k: None for k in self.state_dict()}
+            else:
+                with torch.device("meta"):
+                    full = FancyRec(self.cfg)
+                self._split = param_shardings(self.mesh, full.state_dict())
+        return self._split
+
+    def load_full_state_dict(self, full) -> None:
+        """Load a whole model's state dict (a checkpoint's, one process's):
+        this model rank's shard of it."""
+        self.load_state_dict(full if self.mesh is None
+                             else shard_state_dict(full, self.mesh))
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state dict, the split tensors gathered over
+        the model group: a collective, which every model rank calls."""
+        state = self.state_dict()
+        if self.mesh is None:
+            return state
+        return gather_state_dict(state, self.split_dims())
 
     def seed_dropout(self, seed: int) -> "FancyRec":
         """Seed the training-mode randomness: every tower dropout draws from

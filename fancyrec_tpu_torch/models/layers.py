@@ -16,6 +16,11 @@ forms the product in it and adds the bias in it, so its output is in
 same promotion rules as jax.numpy (bfloat16 with float32 is float32).
 These are explicit casts where the JAX modules have them, not
 `torch.autocast`, whose per-op lists are not flax's.
+
+Tensor parallelism: a module built with a `shard` (this model rank's
+(offset, size) of a dimension the model axis splits, `parallel.mesh.Mesh.
+part`) holds only its part of the split weight; `row_parallel` is the
+layer whose input columns are split (Megatron's row-parallel Linear).
 """
 
 from __future__ import annotations
@@ -81,18 +86,45 @@ def dense(linear: nn.Linear, x: torch.Tensor,
     return y if linear.bias is None else y + linear.bias.to(dtype)
 
 
+def row_parallel(linear: nn.Linear, x: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`dense` of the whole layer, from `linear`, which holds this model
+    rank's input columns of the weight, and x, this rank's columns of the
+    input: the partial products summed over the model group
+    (`collectives.model_reduce`), then the replicated bias once. The
+    partial products stay float32 until after the sum, and are rounded to
+    `dtype` once, as one rank's `dense` rounds its product once: under
+    bfloat16 each partial is the float32 product of the bfloat16 operands
+    (exact products, float32 sums), so the model axis moves a result only
+    by the float32 sum order."""
+    if dtype == torch.float32 and x.dtype == torch.float32:
+        y = F.linear(x, linear.weight)
+    else:
+        y = F.linear(x.to(dtype).float(), linear.weight.to(dtype).float())
+    y = collectives.model_reduce(y).to(dtype)
+    return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
 class MFC(nn.Module):
-    """Linear -> ReLU -> Dropout common-space mapping."""
+    """Linear -> ReLU -> Dropout common-space mapping. With a `shard` of
+    the input features, fc1 is row-parallel: the replicated input enters
+    through `collectives.model_copy` (its grad summed over the model group
+    in the backward) and fc1 holds the shard's input columns."""
 
     def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, shard=None):
         super().__init__()
         self.dtype = dtype
-        self.fc1 = nn.Linear(in_dim, out_dim)
+        self.shard = shard
+        self.fc1 = nn.Linear(in_dim if shard is None else shard[1], out_dim)
         self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.drop(F.relu(dense(self.fc1, x, self.dtype)))
+        if self.shard is None:
+            return self.drop(F.relu(dense(self.fc1, x, self.dtype)))
+        lo, n = self.shard
+        x = collectives.model_copy(x)[..., lo:lo + n]
+        return self.drop(F.relu(row_parallel(self.fc1, x, self.dtype)))
 
 
 class AttentionPool(nn.Module):
@@ -172,11 +204,13 @@ class BatchNorm1dTorch(nn.Module):
     bfloat16; the float32 scale and bias (and running statistics) promote
     the output to float32, as in the JAX module.
 
-    In a world of R ranks (each holding an equal slice of the batch) the
+    Over R data slots (each holding an equal slice of the batch) the
     training statistics are the GLOBAL batch's, as GSPMD gives the JAX
     package over its sharded batch: the sum, then the centered sum of
-    squares, are all-reduced (with autograd) and divided by the global
-    count, and every rank moves its running statistics the same way."""
+    squares, are all-reduced over the data group (with autograd) and
+    divided by the global count, and every rank moves its running
+    statistics the same way. The model ranks of a slot hold the same rows
+    and take no part in the sums."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -188,8 +222,8 @@ class BatchNorm1dTorch(nn.Module):
     def forward(self, x):
         if not self.training:
             mean, var = self.running_mean, self.running_var
-        elif collectives.world_size() > 1:
-            n = x.shape[0] * collectives.world_size()
+        elif collectives.data_size() > 1:
+            n = x.shape[0] * collectives.data_size()
             mean = (collectives.all_reduce_sum(x.float().sum(dim=0))
                     / n).to(x.dtype)
             var = (collectives.all_reduce_sum(

@@ -19,6 +19,14 @@ JAX package's (same distribution); tests hold the two at keep = 1.
 The forward also gives the mask as packed keep bits (`pack_keep_bits`),
 which the autograd function saves and its backward reads: the backward
 draws nothing. The plain versions do the same on the CPU.
+
+An aspect shard. Under tensor parallelism a model rank holds aspects
+[a_off, a_off + A_local) of a table of `a_total` aspects (w's columns and
+asp's rows). Every entry point takes `a_total` and `a_off` (default: the
+whole table): the scale is 1 / (a_total keep) and element (b, a, c) of the
+shard draws the counter of global aspect a_off + a in a table of a_total,
+so the keep masks of the shards are the slices of the whole table's mask
+and their outputs sum to its output. The bits stay the shard's own.
 """
 
 from __future__ import annotations
@@ -79,8 +87,9 @@ def keep_threshold(num_aspects: int, keep: float) -> Tuple[int, float]:
 
 def dropout_mask(seed: Sequence[int], thr: int, b: int, a: int, c: int,
                  a_lo: int, a_hi: int, device) -> torch.Tensor:
-    """The keep mask of aspects [a_lo, a_hi) for all b rows and c columns:
-    bool (b, a_hi - a_lo, c)."""
+    """The keep mask of aspects [a_lo, a_hi) of a table of a aspects, for
+    all b rows and c columns: bool (b, a_hi - a_lo, c). A shard's mask is
+    the slice of its global aspects, with a the table's full A."""
     rows = torch.arange(b, dtype=torch.int64, device=device)[:, None, None]
     asps = torch.arange(a_lo, a_hi, dtype=torch.int64,
                         device=device)[None, :, None]
@@ -99,6 +108,18 @@ def dropout_mask(seed: Sequence[int], thr: int, b: int, a: int, c: int,
     words = torch.stack(philox4x32_10((q & _U32, q >> 32, zero, zero), seed),
                         dim=-1)
     return torch.gather(words, -1, (e & 3)[..., None])[..., 0] <= thr
+
+
+def _span(w: torch.Tensor, a_total, a_off: int) -> Tuple[int, int]:
+    """-> (a_total, a_off) with the defaults of the whole table filled in;
+    raises for a shard outside its table."""
+    a = w.shape[1]
+    a_total = a if a_total is None else int(a_total)
+    a_off = int(a_off)
+    if a_off < 0 or a_off + a > a_total:
+        raise ValueError("aspects [%d, %d) lie outside a table of %d"
+                         % (a_off, a_off + a, a_total))
+    return a_total, a_off
 
 
 def _check(w: torch.Tensor, asp: torch.Tensor, g: torch.Tensor = None):
@@ -138,20 +159,24 @@ def unpack_keep_bits(bits: torch.Tensor, c: int) -> torch.Tensor:
 
 def aspect_dropout_fwd_ref(w: torch.Tensor, asp: torch.Tensor,
                            seed: Sequence[int], keep: float,
-                           with_bits: bool = False):
+                           with_bits: bool = False, a_total: int = None,
+                           a_off: int = 0):
     """Plain PyTorch version of the forward kernel: the mask materialised
     in chunks of aspects, never all at once. -> out, or (out, bits) with
-    the packed keep bits (B, A, ceil(C / 32)) when `with_bits`."""
+    the packed keep bits (B, A, ceil(C / 32)) when `with_bits`. w and asp
+    may hold aspects [a_off, a_off + A) of a table of a_total."""
     _check(w, asp)
     b, a = w.shape
     c = asp.shape[1]
-    thr, scale = keep_threshold(a, keep)
+    a_total, a_off = _span(w, a_total, a_off)
+    thr, scale = keep_threshold(a_total, keep)
     out = torch.zeros((b, c), dtype=torch.float32, device=w.device)
     bits = (torch.empty((b, a, -(-c // 32)), dtype=torch.int32,
                         device=w.device) if with_bits else None)
     for lo in range(0, a, _CHUNK):
         hi = min(lo + _CHUNK, a)
-        m = dropout_mask(seed, thr, b, a, c, lo, hi, w.device)
+        m = dropout_mask(seed, thr, b, a_total, c, a_off + lo, a_off + hi,
+                         w.device)
         prod = w[:, lo:hi, None] * asp[None, lo:hi]
         out = out + torch.where(m, prod, torch.zeros_like(prod)).sum(dim=1)
         if with_bits:
@@ -159,11 +184,11 @@ def aspect_dropout_fwd_ref(w: torch.Tensor, asp: torch.Tensor,
     return (out * scale, bits) if with_bits else out * scale
 
 
-def _bwd_from_masks(w, asp, g, keep, mask_of):
-    """(dw, dasp) with the keep mask of aspects [lo, hi) from
+def _bwd_from_masks(w, asp, g, keep, a_total, mask_of):
+    """(dw, dasp) with the keep mask of the local aspects [lo, hi) from
     mask_of(lo, hi): one sum order for both plain backwards."""
     a = w.shape[1]
-    _, scale = keep_threshold(a, keep)
+    _, scale = keep_threshold(a_total, keep)
     dw = torch.empty_like(w)
     dasp = torch.empty_like(asp)
     for lo in range(0, a, _CHUNK):
@@ -176,15 +201,18 @@ def _bwd_from_masks(w, asp, g, keep, mask_of):
 
 
 def aspect_dropout_bwd_ref(w: torch.Tensor, asp: torch.Tensor,
-                           g: torch.Tensor, seed: Sequence[int], keep: float
+                           g: torch.Tensor, seed: Sequence[int], keep: float,
+                           a_total: int = None, a_off: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain backward that redraws the mask from the seed -> (dw, dasp)."""
     _check(w, asp, g)
-    b, a = w.shape
+    b = w.shape[0]
     c = asp.shape[1]
-    thr, _ = keep_threshold(a, keep)
-    return _bwd_from_masks(w, asp, g, keep, lambda lo, hi: dropout_mask(
-        seed, thr, b, a, c, lo, hi, w.device))
+    a_total, a_off = _span(w, a_total, a_off)
+    thr, _ = keep_threshold(a_total, keep)
+    return _bwd_from_masks(w, asp, g, keep, a_total, lambda lo, hi:
+                           dropout_mask(seed, thr, b, a_total, c, a_off + lo,
+                                        a_off + hi, w.device))
 
 
 def _check_bits(w: torch.Tensor, asp: torch.Tensor, bits: torch.Tensor):
@@ -199,16 +227,18 @@ def _check_bits(w: torch.Tensor, asp: torch.Tensor, bits: torch.Tensor):
 
 def aspect_dropout_bwd_bits_ref(w: torch.Tensor, asp: torch.Tensor,
                                 g: torch.Tensor, bits: torch.Tensor,
-                                keep: float
+                                keep: float, a_total: int = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel: the mask from the forward's
     packed keep bits -> (dw, dasp), bit for bit those of
-    `aspect_dropout_bwd_ref` on the seed that drew the bits."""
+    `aspect_dropout_bwd_ref` on the seed that drew the bits. A shard's
+    bits are its own; a_total gives the scale."""
     _check(w, asp, g)
     _check_bits(w, asp, bits)
     c = asp.shape[1]
-    return _bwd_from_masks(w, asp, g, keep, lambda lo, hi: unpack_keep_bits(
-        bits[:, lo:hi], c))
+    a_total, _ = _span(w, a_total, 0)
+    return _bwd_from_masks(w, asp, g, keep, a_total, lambda lo, hi:
+                           unpack_keep_bits(bits[:, lo:hi], c))
 
 
 class AdmPlan(NamedTuple):
@@ -245,7 +275,7 @@ def _fwd_fn():
     fn = _build.load("aspect_dropout").aspect_dropout_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_uint] * 3
+                       + [ctypes.c_int] * 7 + [ctypes.c_uint] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -260,27 +290,33 @@ def _bwd_fn():
     return fn
 
 
-def aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed, keep, plan):
+def aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed, keep, plan,
+                            a_total=None, a_off=0):
     """The arguments of K2's forward C entry `aspect_dropout_fwd` for
     contiguous CUDA tensors and a plan, on the current stream of w's card;
-    bits None writes no keep bits."""
+    bits None writes no keep bits. w and asp may hold aspects [a_off,
+    a_off + A) of a table of a_total."""
     b, a = w.shape
-    thr, scale = keep_threshold(a, keep)
+    a_total, a_off = _span(w, a_total, a_off)
+    thr, scale = keep_threshold(a_total, keep)
     return (w.data_ptr(), asp.data_ptr(), out.data_ptr(),
             None if bits is None else bits.data_ptr(), scratch.data_ptr(),
-            plan.scratch_floats, b, a, asp.shape[1], plan.splits, plan.span,
-            int(seed[0]) & _U32, int(seed[1]) & _U32, thr, scale,
-            _build.raw_stream(w.device))
+            plan.scratch_floats, b, a, asp.shape[1], a_total, a_off,
+            plan.splits, plan.span, int(seed[0]) & _U32,
+            int(seed[1]) & _U32, thr, scale, _build.raw_stream(w.device))
 
 
-def aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep, plan):
+def aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep, plan,
+                            a_total=None):
     """The arguments of K2's backward C entry `aspect_dropout_bwd` for
-    contiguous CUDA tensors and a plan, on the current stream of w's
-    card."""
+    contiguous CUDA tensors and a plan, on the current stream of w's card.
+    The backward reads the shard's own bits: of a shard it needs only the
+    table's a_total, in the scale."""
     b, a = w.shape
+    a_total, _ = _span(w, a_total, 0)
     return (w.data_ptr(), asp.data_ptr(), g.data_ptr(), bits.data_ptr(),
             dw.data_ptr(), dasp.data_ptr(), b, a, asp.shape[1],
-            plan.bwd_blocks, keep_threshold(a, keep)[1],
+            plan.bwd_blocks, keep_threshold(a_total, keep)[1],
             _build.raw_stream(w.device))
 
 
@@ -299,12 +335,14 @@ def _need_cuda(w: torch.Tensor):
 
 def aspect_dropout_fwd_cuda(w: torch.Tensor, asp: torch.Tensor,
                             seed: Sequence[int], keep: float,
-                            with_bits: bool = False):
+                            with_bits: bool = False, a_total: int = None,
+                            a_off: int = 0):
     """Launch the forward kernel of `csrc/aspect_dropout.cu` (and the sum of
     its splits) -> out, or (out, bits) when `with_bits`, as
     `aspect_dropout_fwd_ref`."""
     _check(w, asp)
     _need_cuda(w)
+    a_total, a_off = _span(w, a_total, a_off)
     b, a = w.shape
     c = asp.shape[1]
     w, asp = w.contiguous(), asp.contiguous()
@@ -313,14 +351,14 @@ def aspect_dropout_fwd_cuda(w: torch.Tensor, asp: torch.Tensor,
     bits = (torch.empty((b, a, -(-c // 32)), dtype=torch.int32, device=dev)
             if with_bits else None)
     if b == 0 or a == 0 or c == 0:
-        keep_threshold(a, keep)                 # refuses a keep out of range
+        keep_threshold(a_total, keep)           # refuses a keep out of range
         out.zero_()
         return (out, bits.zero_()) if with_bits else out
     plan = aspect_dropout_plan(b, a, c, _build.sm_count(dev))
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=dev)
     _run("aspect_dropout_fwd", _fwd_fn(), aspect_dropout_fwd_args(
-        w, asp, out, bits, scratch, seed, keep, plan), dev)
+        w, asp, out, bits, scratch, seed, keep, plan, a_total, a_off), dev)
     aspect_dropout_fwd_cuda.launches += 1
     return (out, bits) if with_bits else out
 
@@ -329,13 +367,16 @@ aspect_dropout_fwd_cuda.launches = 0
 
 
 def aspect_dropout_bwd_cuda(w: torch.Tensor, asp: torch.Tensor,
-                            g: torch.Tensor, bits: torch.Tensor, keep: float
+                            g: torch.Tensor, bits: torch.Tensor, keep: float,
+                            a_total: int = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel of `csrc/aspect_dropout.cu` on the keep
-    bits the forward wrote -> (dw, dasp)."""
+    bits the forward wrote -> (dw, dasp); a_total as in
+    `aspect_dropout_bwd_bits_ref`."""
     _check(w, asp, g)
     _need_cuda(w)
     _check_bits(w, asp, bits)
+    a_total, _ = _span(w, a_total, 0)
     b, a = w.shape
     c = asp.shape[1]
     w, asp, g = w.contiguous(), asp.contiguous(), g.contiguous()
@@ -343,12 +384,12 @@ def aspect_dropout_bwd_cuda(w: torch.Tensor, asp: torch.Tensor,
     dw = torch.empty_like(w)
     dasp = torch.empty_like(asp)
     if b == 0 or a == 0 or c == 0:
-        keep_threshold(a, keep)
+        keep_threshold(a_total, keep)
         return dw.zero_(), dasp.zero_()
     dev = w.device
     plan = aspect_dropout_plan(b, a, c, _build.sm_count(dev))
     _run("aspect_dropout_bwd", _bwd_fn(), aspect_dropout_bwd_args(
-        w, asp, g, bits, dw, dasp, keep, plan), dev)
+        w, asp, g, bits, dw, dasp, keep, plan, a_total), dev)
     aspect_dropout_bwd_cuda.launches += 1
     return dw, dasp
 
@@ -363,10 +404,11 @@ def _fwd_of(w: torch.Tensor):
 
 class _AspectDropoutMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, asp, seed, keep):
-        out, bits = _fwd_of(w)(w, asp, seed, keep, with_bits=True)
+    def forward(ctx, w, asp, seed, keep, a_total, a_off):
+        out, bits = _fwd_of(w)(w, asp, seed, keep, with_bits=True,
+                               a_total=a_total, a_off=a_off)
         ctx.save_for_backward(w, asp, bits)
-        ctx.keep = keep
+        ctx.keep, ctx.a_total = keep, a_total
         return out
 
     @staticmethod
@@ -374,20 +416,27 @@ class _AspectDropoutMean(torch.autograd.Function):
         w, asp, bits = ctx.saved_tensors
         bwd = (aspect_dropout_bwd_bits_ref if w.device.type == "cpu"
                else aspect_dropout_bwd_cuda)
-        dw, dasp = bwd(w, asp, g.contiguous(), bits, ctx.keep)
-        return dw, dasp, None, None
+        args = (w, asp, g.contiguous(), bits, ctx.keep)
+        # a shard's scale is its table's
+        dw, dasp = (bwd(*args) if ctx.a_total == w.shape[1]
+                    else bwd(*args, a_total=ctx.a_total))
+        return dw, dasp, None, None, None, None
 
 
 def aspect_dropout_mean(w: torch.Tensor, asp: torch.Tensor,
-                        seed: Sequence[int], keep: float = 0.5
+                        seed: Sequence[int], keep: float = 0.5,
+                        a_total: int = None, a_off: int = 0
                         ) -> torch.Tensor:
     """Mean over aspects of dropout(w[:, :, None] * asp[None]), fused and
     differentiable in w and asp: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors.
 
     w: (B, A) aspect weights, asp: (A, C) aspect matrix, float32; seed: two
-    32-bit key words; keep: the keep probability. -> (B, C) float32."""
+    32-bit key words; keep: the keep probability. -> (B, C) float32. On an
+    aspect shard (aspects [a_off, a_off + A) of a_total), this shard's
+    share of the whole table's output: the shards' outputs sum to it."""
     seed = tuple(int(s) for s in seed)
+    a_total, a_off = _span(w, a_total, a_off)
     if torch.is_grad_enabled() and (w.requires_grad or asp.requires_grad):
-        return _AspectDropoutMean.apply(w, asp, seed, keep)
-    return _fwd_of(w)(w, asp, seed, keep)      # no grad: no keep bits
+        return _AspectDropoutMean.apply(w, asp, seed, keep, a_total, a_off)
+    return _fwd_of(w)(w, asp, seed, keep, a_total=a_total, a_off=a_off)

@@ -1,13 +1,15 @@
 """Joining a world of processes: port of fancyrec_tpu/parallel/distributed.py
 over `torch.distributed`.
 
-A world is R processes, one a rank, each on its own slice of every global
-batch (the JAX package's processes on a pod). The standard environment
-describes it: RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR
-and MASTER_PORT, which `torchrun` sets, and so can any launcher:
+A world is R*M processes, one a rank: R data slots, each on its own slice
+of every global batch (the JAX package's processes on a pod), of M model
+ranks each, which split the wide parameters (`parallel/mesh.py`). The
+standard environment describes it: RANK, WORLD_SIZE, LOCAL_RANK,
+LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT, which `torchrun` sets, and
+so can any launcher:
 
-    torchrun --nproc_per_node R -m fancyrec_tpu_torch.train.trainer ... \\
-        --mesh_shape R,1
+    torchrun --nproc_per_node R*M -m fancyrec_tpu_torch.train.trainer \\
+        ... --mesh_shape R,M
 
 Without WORLD_SIZE there is no world and nothing here communicates. A
 rank's device is `cuda:LOCAL_RANK % device_count()` (or the CPU under
@@ -33,7 +35,7 @@ import torch.distributed as dist
 
 from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.parallel.collectives import (
-    comm_device, rank, world_size)
+    comm_device, data_rank, rank, world_size)
 
 # how long a rank waits in init or in a collective before it fails
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -100,10 +102,13 @@ def _destroy() -> None:
 
 
 def dropout_seed(seed: int) -> int:
-    """The seed of this rank's dropout draws: `seed` on rank 0 (and outside
-    a world), another stream on every other rank, whose rows are other
-    posts. The weights stay seeded with `seed` on every rank."""
-    return seed + 1_000_003 * rank()
+    """The seed of this rank's dropout draws: `seed` on data slot 0 (and
+    outside a world), another stream on every other data slot, whose rows
+    are other posts. The model ranks of a slot hold the same activations
+    and must drop the same elements of them, so they share their slot's
+    stream: a world of (1, M) draws what one process draws. The weights
+    stay seeded with `seed` on every rank. Call after `build_mesh`."""
+    return seed + 1_000_003 * data_rank()
 
 
 def is_primary() -> bool:

@@ -20,6 +20,13 @@ checkpoints.py): checkpoint_epoch_<e>.pth.tar and model_best.pth.tar.
     `models.torch_import` and `interop`.
 So a model trained by the JAX package or the reference evaluates, serves
 and resumes training in the port.
+
+A file always holds the whole model. Under a model axis, saving gathers
+every split parameter and Adam moment over the model group (every rank
+takes part; the primary writes), and loading cuts the whole tree to the
+rank's shard (`FancyRec.load_full_state_dict`,
+`state.load_optimizer_state`), so a file from any mesh, or from the JAX
+package, loads under any other.
 """
 
 from __future__ import annotations
@@ -45,17 +52,31 @@ _EPOCH_FILE = re.compile(r"checkpoint_epoch_(\d+)\.pth\.tar$")
 
 def save_checkpoint(path: str, cfg: Config, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    **meta: Any) -> None:
+                    write: bool = True, **meta: Any) -> None:
     """Write atomically (tmp + rename): a crash mid-save leaves no
     truncated file behind for a resume to pick. `meta` holds
-    JSON-serializable scalars."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    blob = {"format": FORMAT, "config": cfg.to_json(),
-            "meta": json.dumps(meta), "state_dict": state}
+    JSON-serializable scalars. A model built for a model rank is gathered
+    first, a collective: every rank of its model group calls this, and
+    only the one with `write` writes."""
+    from fancyrec_tpu_torch.train.state import full_optimizer_state
+
+    sharded = getattr(model, "mesh", None) is not None
+    if not (write or sharded):
+        return
+    state = model.full_state_dict() if sharded else model.state_dict()
+    opt_state = None
     if optimizer is not None:
         # its tensors stay where they are; load_checkpoint maps them to CPU
-        blob["optimizer"] = optimizer.state_dict()
+        opt_state = (full_optimizer_state(optimizer, model) if sharded
+                     else optimizer.state_dict())
+    if not write:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    state = {k: v.detach().cpu() for k, v in state.items()}
+    blob = {"format": FORMAT, "config": cfg.to_json(),
+            "meta": json.dumps(meta), "state_dict": state}
+    if opt_state is not None:
+        blob["optimizer"] = opt_state
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
@@ -246,17 +267,22 @@ def maybe_save_best(state_dir: str, cfg: Config, model: nn.Module,
                     epoch: int, score: float, best_rsum: float, eiters: int,
                     best_epoch: Optional[int],
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    extra_meta: Optional[dict] = None) -> float:
+                    extra_meta: Optional[dict] = None,
+                    write: bool = True) -> float:
     """The reference's policy: write the epoch file when there is no best
     yet or score > 0.99 best, copy it to model_best on improvement, return
     the new best. The file records the running best (the JAX package's
-    fix: the reference stores the epoch's own score)."""
+    fix: the reference stores the epoch's own score). In a world every
+    rank calls it with the same score (a model rank's part goes into the
+    file), and only the primary, `write`, touches the disk."""
     filename = os.path.join(state_dir, "checkpoint_epoch_%s.pth.tar" % epoch)
     new_best = max(score, best_rsum)
     if best_epoch is None or score > best_rsum * 0.99:
-        save_checkpoint(filename, cfg, model, optimizer, epoch=epoch + 1,
-                        best_rsum=new_best, Eiters=eiters,
+        save_checkpoint(filename, cfg, model, optimizer, write=write,
+                        epoch=epoch + 1, best_rsum=new_best, Eiters=eiters,
                         **(extra_meta or {}))
+    if not write:
+        return new_best
     if score > best_rsum:
         shutil.copyfile(filename, os.path.join(state_dir, "model_best.pth.tar"))
     prune_old_checkpoints(state_dir, cfg.keep_checkpoints)

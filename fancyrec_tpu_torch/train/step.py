@@ -17,6 +17,15 @@ rank. The per-rank grads are then summed over the ranks with one
 all-reduce of the flat grads an update: a sum, not DDP's mean, since the
 JAX package applies Adam to the grad sum. The clip, `grad_norm` and the
 update use the summed grads, so every rank takes the same step.
+
+Over a (data=R, model=M) mesh both of those collectives run over the
+data group: the M model ranks of a slot hold the same rows, so the
+gathered batch holds each row once, and the grads are summed over the R
+slots only. The flat all-reduce covers every local tensor, a model rank's
+shard of a split weight as much as a replicated one: either needs the sum
+over the slots and no more (the model group's sums are in the forward and
+backward of the split layers). The clip's norm is of the full tensors
+(`state.global_norm`).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from fancyrec_tpu_torch.losses import (
 from fancyrec_tpu_torch.models.encoders import TextBatch, VisualBatch
 from fancyrec_tpu_torch.parallel import collectives
 from fancyrec_tpu_torch.train.state import (
-    TrainState, clip_grad_norm, global_norm)
+    TrainState, clip_grad_norm, global_norm, sharded_params)
 
 
 def micro_loss(model, cfg: Config, queue, mb: Dict[str, torch.Tensor]):
@@ -95,15 +104,16 @@ def train_step(model, opt: torch.optim.Optimizer, cfg: Config,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    if collectives.world_size() > 1:
+    if collectives.data_size() > 1:
         flat = collectives.all_reduce_sum_(torch.cat(
             [g.reshape(-1) for g in grads]))
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
+    sharded = sharded_params(model)
     if cfg.grad_clip > 0:
-        grad_norm = clip_grad_norm(grads, cfg.grad_clip)
+        grad_norm = clip_grad_norm(grads, cfg.grad_clip, sharded)
     else:
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, sharded)
     opt.step()
     losses = torch.stack(losses)
     return (TrainState(queue=queue, step=state.step + a),

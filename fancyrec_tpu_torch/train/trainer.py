@@ -26,6 +26,14 @@ is the global batch's (`parallel/`, `train/step.py`), as the JAX package
 computes it on a (data=R, model=1) mesh. --mesh_shape "" puts every rank
 on data. Skip decisions are the primary's; only the primary (rank 0)
 writes metrics, checkpoints and val_metric.txt.
+
+Tensor parallelism: --mesh_shape R,M over a world of R*M ranks lays rank
+r at data slot r // M and model index r % M (`parallel/mesh.py`). The M
+model ranks of a slot load the same rows and split the parameters the JAX
+package's `_PARAM_RULES` split (the brand tables' aspects, the mapping
+MFCs' inputs, BERT's FFN), the batch's collectives run over the data
+group, the layers' over the model group; a checkpoint holds the whole
+model, gathered on save and cut on load.
 """
 
 from __future__ import annotations
@@ -203,7 +211,7 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
         # kept on the device: reading it here would wait for every step
         losses.append(metrics["loss"])
         n_items += (superbatch["frames"].shape[0]
-                    * superbatch["frames"].shape[1] * collectives.world_size())
+                    * superbatch["frames"].shape[1] * collectives.data_size())
     losses = [float(x) for x in losses]
     dt = time.time() - t0
     if losses:
@@ -237,9 +245,10 @@ def main(argv=None):
     # an explicit --mesh_shape's batch is checked by cfg.finalize; the
     # default mesh's data axis is known only here
     require_divisible_batch(mesh, cfg.batch_size)
-    if mesh.data > 1:
-        print("mesh: data=%d, model=1; rank %d on %s"
-              % (mesh.data, mesh.rank, device))
+    if mesh.data * mesh.model > 1:
+        print("mesh: data=%d, model=%d; rank %d (data %d, model %d) on %s"
+              % (mesh.data, mesh.model, mesh.rank, mesh.data_rank,
+                 mesh.model_rank, device))
     return _run(cfg, device, mesh)
 
 
@@ -277,12 +286,12 @@ def _run(cfg: Config, device: torch.device, mesh: Mesh):
     # back by dataset index); the train loader regroups only on request
     eval_grouped = ("sort" if cfg.token_buckets_list or cfg.frame_buckets_list
                     else "off")
-    # in a world each rank gathers only its 1/R of every batch's rows
+    # in a world each data slot gathers only its 1/R of every batch's rows
     pshard = process_batch_shard(mesh, cfg.batch_size)
     if pshard is not None:
-        print("process-sharded loading: rank %d/%d gathers %d of %d rows a "
-              "batch" % (pshard[0], pshard[1], cfg.batch_size // pshard[1],
-                         cfg.batch_size))
+        print("process-sharded loading: data slot %d/%d gathers %d of %d "
+              "rows a batch" % (pshard[0], pshard[1],
+                                cfg.batch_size // pshard[1], cfg.batch_size))
     loaders = {
         "train": BatchLoader(datasets["train"], cfg.batch_size, shuffle=True,
                              seed=cfg.seed, final_batch="drop",
@@ -300,10 +309,12 @@ def _run(cfg: Config, device: torch.device, mesh: Mesh):
                             process_shard=pshard),
     }
 
-    model, opt, state = init_state(cfg, device)
+    model, opt, state = init_state(cfg, device, mesh=mesh)
     if cfg.w2v_feature and cfg.text_net == "bi-gru":
         init_word_embeddings(model, cfg)
-    print("model parameters: %d" % sum(p.numel() for p in model.parameters()))
+    print("model parameters: %d%s" % (
+        sum(p.numel() for p in model.parameters()),
+        " (this model rank's)" if mesh.model > 1 else ""))
     best_rsum, no_impr, lr_counter = 0.0, 0, 0
     best_epoch = None
     eiters = 0
@@ -317,7 +328,7 @@ def _run(cfg: Config, device: torch.device, mesh: Mesh):
             # the port's own checkpoint, the JAX package's FRTPU1 or a
             # reference torch one; the first two carry the optimizer state
             ckpt = checkpoints.load_any(cfg.resume)
-            model.load_state_dict(ckpt["state_dict"])
+            model.load_full_state_dict(ckpt["state_dict"])
             if "optimizer" in ckpt:
                 load_optimizer_state(opt, model, ckpt["optimizer"])
                 print("=> optimizer state restored (exact Adam trajectory)")
@@ -380,19 +391,18 @@ def _run(cfg: Config, device: torch.device, mesh: Mesh):
                 half = True
         else:
             no_impr = 0
-        if primary:
-            best_rsum = checkpoints.maybe_save_best(
-                cfg.logger_name, cfg, model, epoch, score, best_rsum,
-                state.step + eiters, best_epoch, optimizer=opt,
-                extra_meta={"no_impr": no_impr,
-                            "lr_counter": 0 if half else lr_counter,
-                            # the saved optimizer predates this epoch's lr
-                            # scalings; auto_resume applies this factor
-                            "pending_lr_scale": cfg.lr_decay_rate * (
-                                0.5 if half else 1.0)})
-        else:
-            # the other ranks track the same best without writing
-            best_rsum = max(score, best_rsum)
+        # every rank takes part (a model rank's shard is gathered into the
+        # file) and tracks the same best; the primary writes
+        best_rsum = checkpoints.maybe_save_best(
+            cfg.logger_name, cfg, model, epoch, score, best_rsum,
+            state.step + eiters, best_epoch, optimizer=opt,
+            extra_meta={"no_impr": no_impr,
+                        "lr_counter": 0 if half else lr_counter,
+                        # the saved optimizer predates this epoch's lr
+                        # scalings; auto_resume applies this factor
+                        "pending_lr_scale": cfg.lr_decay_rate * (
+                            0.5 if half else 1.0)},
+            write=primary)
         if is_best:
             best_epoch = epoch
         scale_lr(opt, cfg.lr_decay_rate)

@@ -26,8 +26,10 @@ through adapters chosen by the parameter count of their C entries:
     seed0, seed1, thr, scale, stream)` and `aspect_dropout_bwd(w, asp, g,
     dw, dasp, B, A, C, seed0, seed1, thr, scale, stream)`, whose backward
     redraws the mask from the seed (the commits before the keep bits), or
-    this tree's entries, whose forward writes the keep bits and splits A
-    over a scratch buffer and whose backward reads the bits.
+    the entries whose forward writes the keep bits and splits A over a
+    scratch buffer and whose backward reads the bits: with 16 parameters
+    (the commits before aspect shards) or this tree's 18 (A_total and
+    a_off, here the whole table).
 Each kernel is held against its plain version, and each quantity is timed
 in ten pairs, the base and this tree taking turns at going first:
   - K3 at 51 x 1,000,000 x 1024, k = 10 and k = 128, and 51 x 4,080 x 1024
@@ -472,9 +474,12 @@ def k2(dev, base_lib, params, results):
             fwd_args = (w.data_ptr(), asp.data_ptr(), out.data_ptr(), b, a, c,
                         s0, s1, thr, scale, stream)
         else:
-            fwd.argtypes = bd._fwd_fn().argtypes
             fwd_args = bd.aspect_dropout_fwd_args(
                 w, asp, out, bits, scratch, cs.K2_SEED, cs.KEEP, plan)
+            fwd.argtypes = list(bd._fwd_fn().argtypes)
+            if n_fwd == 16:             # no A_total, a_off (args 9 and 10)
+                fwd_args = fwd_args[:9] + fwd_args[11:]
+                del fwd.argtypes[9:11]
         if n_bwd == 13:
             bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                             + [ctypes.c_uint] * 3
@@ -504,7 +509,7 @@ def k2(dev, base_lib, params, results):
             for side, lib, n_fwd, n_bwd in (
                     ("base", base_lib, params["aspect_dropout_fwd"],
                      params["aspect_dropout_bwd"]),
-                    ("this", _build.load("aspect_dropout"), 16, 12)):
+                    ("this", _build.load("aspect_dropout"), 18, 12)):
                 fwd, bwd, bufs = entries(lib, n_fwd, n_bwd, w, asp, gr)
                 out, dw, dasp = bufs[:3]
                 torch.cuda.synchronize()
@@ -540,7 +545,7 @@ def k2(dev, base_lib, params, results):
 KERNELS = {"k3": ("topk_int8", {"topk_int8_fwd": (12, 17)}),
            "k4": ("cosine_scores", {"cosine_scores_fwd": (7, 9)}),
            "k1bwd": ("gru_scan", {"gru_scan_bwd": (14,)}),
-           "k2": ("aspect_dropout", {"aspect_dropout_fwd": (11, 16),
+           "k2": ("aspect_dropout", {"aspect_dropout_fwd": (11, 16, 18),
                                      "aspect_dropout_bwd": (13, 12)})}
 
 

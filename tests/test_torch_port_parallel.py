@@ -239,15 +239,30 @@ def test_build_mesh_refuses_what_jax_refuses(shape):
 
 
 def test_build_mesh_refuses_what_the_port_does_not_run():
-    # idle ranks: the JAX package takes a leading subset of its devices
-    with pytest.raises(ValueError, match="idle"):
-        mesh.build_mesh("4,1", world=8)
-    for shape in ("4,2", "1,2", "2,4"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    """What the port still refuses: idle ranks (the JAX package takes a
+    leading subset of its devices), a mesh of more ranks than the world,
+    malformed shapes, and the flags of later slices, --seq_shard and
+    --pp_stages above 1. A model axis is run: R * M must equal the world."""
+    for shape in ("4,1", "2,2", "1,4", "3,2"):         # R * M below 8
+        with pytest.raises(ValueError, match="idle"):
             mesh.build_mesh(shape, world=8)
-    for shape in ("a,1", "0,1", "2,1,1"):
+    for shape in ("4,4", "3,3", "1,16"):               # R * M above 8
+        with pytest.raises(ValueError, match="needs"):
+            mesh.build_mesh(shape, world=8)
+    for shape, want in (("4,2", (4, 2)), ("1,8", (1, 8)), ("2,4", (2, 4))):
+        m = mesh.build_mesh(shape, world=8)
+        assert (m.data, m.model) == want
+    for shape in ("a,1", "0,1", "2,1,1", "2,0"):
         with pytest.raises(ValueError):
             mesh.build_mesh(shape, world=8)
+    argv = ARGS + ["--rootpath", "unused"]
+    for flags, item in ((["--seq_shard"], "seq_shard.*item 1"),
+                        (["--pp_stages", "2"], "pp_stages.*item 2")):
+        with pytest.raises(NotImplementedError, match=item):
+            config_from_args(build_train_parser().parse_args(argv + flags))
+    with pytest.raises(ValueError, match="mesh_shape"):
+        config_from_args(build_train_parser().parse_args(
+            argv + ["--mesh_shape", "2,x"]))
 
 
 @pytest.mark.parametrize("dev,local_world,named,want", [

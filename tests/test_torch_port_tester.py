@@ -137,11 +137,11 @@ def test_tester_skips_and_refuses_like_the_jax_tester(root, tmp_path):
     m = tester.main(_argv(root, pdir) + ["--device", "cpu", "--overwrite",
                                          "1"])
     assert _read(results)["auc"] == m.auc
-    # a data axis of 2 needs a world of 2 ranks (this process is one); a
-    # model axis and XLA's compile cache are not in the port
+    # a data axis of 2, or a model axis of 2, needs a world of 2 ranks
+    # (this process is one); XLA's compile cache is not in the port
     for flag, error, match in (
             (["--mesh_shape", "2,1"], ValueError, "needs 2 ranks, have 1"),
-            (["--mesh_shape", "1,2"], NotImplementedError, "model mesh axis"),
+            (["--mesh_shape", "1,2"], ValueError, "needs 2 ranks, have 1"),
             (["--compilation_cache_dir", str(tmp_path / "xla")],
              NotImplementedError, "--compilation_cache_dir")):
         with pytest.raises(error, match=match):

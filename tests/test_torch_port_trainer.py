@@ -115,8 +115,8 @@ def test_auto_resume_restores_the_optimizer_moments(root, monkeypatch):
     # of one (as the JAX package's build_mesh refuses too many devices)
     (["--mesh_shape", "2,1"], ValueError, "needs 2 ranks, have 1"),
     (["--mesh_shape", "2"], ValueError, "needs 2 ranks, have 1"),
-    # a model axis (tensor parallelism) is a later slice of the port
-    (["--mesh_shape", "1,2"], NotImplementedError, "model mesh axis"),
+    # so does a model axis of 2 (tensor parallelism: a rank a model index)
+    (["--mesh_shape", "1,2"], ValueError, "needs 2 ranks, have 1"),
     (["--pp_stages", "2"], NotImplementedError, "--pp_stages"),
     (["--seq_shard"], NotImplementedError, "--seq_shard"),
     (["--rng_impl", "rbg"], NotImplementedError, "--rng_impl"),
