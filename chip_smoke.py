@@ -109,9 +109,26 @@ Phases:
      against one process from the same seed; (c) one update at
      --mesh_shape 2,2 (four ranks) against 10c's; (d) the tester CLI at
      (1, 2) on b's checkpoint: its metrics equal the one-process tester's.
-The kernels' launch counts are zeroed just before each of the seven paths
-(4, 4b, 4d, 5c, 6, 7's trainer and 7's tester) and read just after: each
-kernel must have run on its path (K1-fwd on 4 and 4d, K3 on 4 and 4b).
+  12. sharded serving, on phase 4's index (1,000,001 int8 rows of 1024
+     after 4b's append): (a) `distributed_retrieval_topk` over 2 and 4
+     post shards on the card: K3 launched once a shard a call, the answer
+     bit-equal to one K3 call over the whole index and equal to the plain
+     per-shard version; each shard's K3 ms beside its bytes bound, the
+     merge's and the whole call's ms; edges (a shard without a valid row
+     with k > N, 132-byte rows with N % S != 0, k = 128); (b) the int8
+     service over 4 shards: /v1/topk for the 51 brands 21 times over
+     HTTP (p50, p99), every answer equal to phase 4's service's and to
+     one K3 call's, then /v1/add, after which the next query ranks the
+     new post first; (c) phase 4b's IVF sidecar with its lists over 4
+     shards: 8 brands at nprobe 8 and 64, both probe modes, equal to the
+     unsharded sidecar's answers, a query's ms; (d) `index build` over two
+     ranks sharing the card (gloo, --mesh_shape 2,1) on phase 4's
+     collection: phase 4's cap ids in its order, the rows within
+     RANK_BUILD_TOL of its rows, K1 launched on each rank.
+The kernels' launch counts are zeroed just before each of the nine paths
+(4, 4b, 4d, 5c, 6, 7's trainer, 7's tester, 12b and 12d) and read just
+after: each kernel must have run on its path (K1-fwd on 4, 4d and 12d's
+ranks, K3 on 4, 4b and 12b).
 Phase 10's and 11's ranks zero and read their own counts around their
 CLI's main (or their one update); the records of phase 10 (K1, K2 at B=4,
 K4 at a shard) count the launches summed over the ranks of 10d (training)
@@ -1726,8 +1743,9 @@ def main_path(work, dev):
             np.testing.assert_allclose([p["score"] for p in res["posts"]],
                                        vp[b], rtol=0, atol=K3_TOL)
     log("served posts equal the plain top-k for all %d brands" % N_BRANDS)
-    return {"idx": idx, "ckpt": ckpt, "first": first, "cpu_model": cpu_model,
-            "rows": rows, "fwd_ms": fwd_ms}
+    return {"idx": idx, "ckpt": ckpt, "root": root, "first": first,
+            "cpu_model": cpu_model, "rows": rows, "fwd_ms": fwd_ms,
+            "n_built": n_built, "reply": replies[-1]}
 
 
 def http_status(port, method, path, body=None):
@@ -3103,9 +3121,10 @@ DP_RANKS = 2                  # ranks of the data-parallel world on one card
 B_RANK = B_TRAIN // DP_RANKS  # each rank's rows of a recipe microbatch
 DP_TIMEOUT = 420              # seconds a world of ranks may take
 
-# One rank of a phase-10 or phase-11 run, started as `python -c _RANK_MAIN
-# HERE mode out argv`: the trainer (mode "train") or the tester ("test") CLI
-# through its main, or one update through the library ("step": the
+# One rank of a phase-10, 11 or 12 run, started as `python -c _RANK_MAIN
+# HERE mode out argv`: the trainer (mode "train"), the tester ("test") or
+# the index ("build", phase 12d) CLI through its main, or one update
+# through the library ("step": the
 # trainer's loader, init_state and train_step; "step_drop": the same with
 # the brand dropout on). Instruments, none of them in the program:
 # deterministic algorithms (so that two runs of the same update can agree
@@ -3180,6 +3199,10 @@ def ranking(model, brand_num, post_embs, brands, device):
     return _ranking(model, brand_num, post_embs, brands, device)
 if mode == "train":
     got = trainer.main(argv)
+elif mode == "build":
+    from fancyrec_tpu_torch.serving import index
+    index.main(argv)
+    got = {}
 elif mode.startswith("step"):
     from fancyrec_tpu_torch.config import build_train_parser, config_from_args
     from fancyrec_tpu_torch.data.loader import BatchLoader, prefetch_to_device
@@ -3845,6 +3868,349 @@ def tensor_parallel_path(root, dev, sass, l_one):
             "eval_counts": sums(tested)}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: sharded serving, one process holding post shards
+# ---------------------------------------------------------------------------
+
+SHARDS = (2, 4)      # 12a's shard counts on the card; 12b and 12c take 4
+SERVE_SHARDS = 4
+# 12a's edges (N, D, S, k): the last shard without a valid row and k > N;
+# rows of 132 bytes (4-byte copies) and N % S != 0; k = 128 over 2 shards
+SHARD_EDGES = ((9, 1024, 4, 10), (1001, 132, 4, 10), (999, 256, 2, 128))
+# the ranked build's rows against the one-process build's: the card's
+# encode tolerance (the ranks encode 64-row slices, one process 128 rows)
+RANK_BUILD_TOL = ENC_TOL
+
+
+def shard_plain(q, shards, invs, k, n_valid, size):
+    """The plain version of a sharded query: `topk_int8_ref` on each shard
+    over its valid rows, the indices made global, one stable sort."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import _topk_desc, topk_int8_ref
+    vals, idxs = [], []
+    for s, (p, inv) in enumerate(zip(shards, invs)):
+        local = min(max(n_valid - s * size, 0), size)
+        v, i = topk_int8_ref(q.to(p.device), p, inv, k, local)
+        vals.append(v.to(q.device))
+        idxs.append((i + s * size).to(q.device))
+    v, sel = _topk_desc(torch.cat(vals, 1), k)
+    return v, torch.gather(torch.cat(idxs, 1), 1, sel.long())
+
+
+def sharded_query(q, shards, invs, k, n_valid, size):
+    """`distributed_retrieval_topk` on K3 -> (vals, idxs, K3 launches)."""
+    from fancyrec_tpu_torch.ops.similarity import (
+        distributed_retrieval_topk, topk_int8_cuda)
+    before = topk_int8_cuda.launches
+    v, i = distributed_retrieval_topk(q, shards, k, n_valid=n_valid,
+                                      shard_size=size, posts_inv=invs,
+                                      fused=True)
+    return v, i, topk_int8_cuda.launches - before
+
+
+def check_k3_shard_edges(dev):
+    """12a's edges: the sharded query against one K3 call over the same
+    rows (equal indices, bit-equal values, wherever a post ranks) and
+    against the plain per-shard version (every slot)."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import (
+        quantize_rows_int8_np, topk_int8_cuda)
+    from fancyrec_tpu_torch.serving.index import shard_rows
+
+    rng = np.random.default_rng(SEED + 12)
+    for n, d, n_shards, k in SHARD_EDGES:
+        rows, inv = quantize_rows_int8_np(rng.standard_normal(
+            (n, d), dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((7, d), dtype=np.float32)
+                             ).to(dev)
+        shards, invs = shard_rows(rows, inv, (dev,) * n_shards)
+        size = shards[0].shape[0]
+        v, i, launches = sharded_query(q, shards, invs, k, n, size)
+        ov, oi = topk_int8_cuda(q, torch.from_numpy(rows).to(dev),
+                                torch.from_numpy(inv).to(dev), k)
+        pv, pi = shard_plain(q, shards, invs, k, n, size)
+        fin = torch.isfinite(ov)
+        if launches != n_shards:
+            fail("a query over %d shards launched K3 %d times"
+                 % (n_shards, launches))
+        if not (torch.equal(torch.isfinite(v), fin)
+                and torch.equal(i[fin], oi[fin])
+                and torch.equal(v[fin], ov[fin])):
+            fail("the sharded query N=%d D=%d S=%d k=%d differs from one K3 "
+                 "call" % (n, d, n_shards, k))
+        if not torch.equal(i, pi) or not torch.allclose(
+                v, pv, rtol=0, atol=K3_TOL):
+            fail("the sharded query N=%d D=%d S=%d k=%d differs from its "
+                 "plain version" % (n, d, n_shards, k))
+        log("12a edge N=%d D=%d S=%d (shards of %d rows, valid %s) k=%d: "
+            "equal to one K3 call and to the plain per-shard version"
+            % (n, d, n_shards, size, [min(max(n - s * size, 0), size)
+                                      for s in range(n_shards)], k))
+
+
+def check_k3_shards(idx, dev):
+    """12a: `distributed_retrieval_topk` over phase 4's index in S = 2 and
+    4 shards on the card: K3 launched S times a call, the answer bit-equal
+    to one K3 call over the whole index and equal to the plain per-shard
+    version; the CUDA-event ms of each shard's K3 beside its bytes bound,
+    of the merge and of the whole call. -> ([{shards, call_ms, merge_ms,
+    shard: [{rows, ms, bound_ms, bound_by}]} an S], one K3 call's answer as
+    numpy)."""
+    import torch
+    from fancyrec_tpu_torch.ops.similarity import _topk_desc, topk_int8_cuda
+    from fancyrec_tpu_torch.parallel.mesh import ServingMesh
+    from fancyrec_tpu_torch.serving.index import PostIndex
+
+    check_k3_shard_edges(dev)
+    one = PostIndex(idx, quantize="int8", device=str(dev))
+    n = one.n_posts
+    q = torch.from_numpy(one.brand_embs).to(dev)
+    b = q.shape[0]
+    with torch.no_grad():
+        ov, oi = topk_int8_cuda(q, one.posts(), one._posts_inv, TOPK, n)
+        one_ms = cuda_ms(lambda: topk_int8_cuda(q, one.posts(),
+                                                one._posts_inv, TOPK, n), 20)
+    del one
+    torch.cuda.empty_cache()
+    log("12a: one K3 call over the whole index (%d x %d x %d, k=%d): %.4f "
+        "ms (run H: 0.4722)" % (b, n, DIM, TOPK, one_ms))
+    records = []
+    for n_shards in SHARDS:
+        idx_s = PostIndex(idx, quantize="int8",
+                          mesh=ServingMesh((dev,) * n_shards))
+        shards, invs, size = idx_s.posts(), idx_s._posts_inv, idx_s.shard_size
+        valid = [min(max(n - s * size, 0), size) for s in range(n_shards)]
+        with torch.no_grad():
+            v, i, launches = sharded_query(q, shards, invs, TOPK, n, size)
+            pv, pi = shard_plain(q, shards, invs, TOPK, n, size)
+            if launches != n_shards:
+                fail("a query over %d shards launched K3 %d times"
+                     % (n_shards, launches))
+            if not (torch.equal(i, oi) and torch.equal(v, ov)):
+                fail("the query over %d shards differs from one K3 call"
+                     % n_shards)
+            if not torch.equal(pi, i) or not torch.allclose(
+                    v, pv, rtol=0, atol=K3_TOL):
+                fail("the query over %d shards differs from its plain "
+                     "version" % n_shards)
+            err = (v - pv).abs().max().item()
+            call_ms = uncounted(lambda: cuda_ms(lambda: sharded_query(
+                q, shards, invs, TOPK, n, size), 20))
+            shard_ms, cands = [], []
+            for p, inv, nv in zip(shards, invs, valid):
+                shard_ms.append(uncounted(lambda: cuda_ms(
+                    lambda: topk_int8_cuda(q, p, inv, TOPK, nv), 20)))
+                cands.append(uncounted(
+                    lambda: topk_int8_cuda(q, p, inv, TOPK, nv)))
+            cv = torch.cat([c[0] for c in cands], 1)
+            ci = torch.cat([c[1] for c in cands], 1)
+            merge_ms = cuda_ms(lambda: torch.gather(
+                ci, 1, _topk_desc(cv, TOPK)[1].long()), 20)
+        per = []
+        for s, (ms, nv) in enumerate(zip(shard_ms, valid)):
+            bound = roofline(4 * q.numel() + nv * DIM + 4 * nv
+                             + 8 * b * TOPK, 2 * b * nv * DIM, INT8_OPS)
+            per.append({"rows": nv, "ms": ms, **bound})
+            log("12a: S=%d, shard %d (%d valid rows): K3 %.4f ms, bound "
+                "%.4f ms (%s)" % (n_shards, s, nv, ms, bound["bound_ms"],
+                                  bound["bound_by"]))
+        records.append({"shards": n_shards, "call_ms": call_ms,
+                        "merge_ms": merge_ms, "shard": per})
+        log("12a: S=%d: K3 launched %d times a call; the answer bit-equal to "
+            "one K3 call, indices equal to the plain per-shard version "
+            "(max |diff| %.3g, tolerance %g); whole call %.4f ms, the merge "
+            "%.4f ms, the shards' K3 summed %.4f ms"
+            % (n_shards, launches, err, K3_TOL, call_ms, merge_ms,
+               sum(shard_ms)))
+        del idx_s, shards, invs, cands
+        torch.cuda.empty_cache()
+    return records, {"vals": ov.cpu().numpy(), "idxs": oi.cpu().numpy()}
+
+
+def sharded_service(idx, phase4, single, dev):
+    """12b, the main path of the slice: `FancyRecService` over 4 post
+    shards on the card, /v1/topk for all 51 brands 21 times over HTTP (the
+    first a warm-up): the answers equal phase 4's service's and 12a's one
+    K3 call's; then /v1/add and a query that sees the new post."""
+    import numpy as np
+    from fancyrec_tpu_torch.parallel.mesh import ServingMesh
+    from fancyrec_tpu_torch.serving.server import FancyRecService
+
+    t0 = time.time()
+    service = FancyRecService(idx, quantize="int8",
+                              mesh=ServingMesh((dev,) * SERVE_SHARDS))
+    index = service.index
+    log("12b: int8 service over %d shards of %d rows up: %.1f s"
+        % (SERVE_SHARDS, index.shard_size, time.time() - t0))
+    server, thread = serve(service)
+    try:
+        port = server.server_port
+        body = {"brand_ids": list(range(N_BRANDS)), "k": TOPK}
+        lat, replies = [], []
+        for _ in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            replies.append(http(port, "POST", "/v1/topk", body))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        n_before = index.n_posts
+        new = (index.brand_embs[0] * 5.0).tolist()
+        added = http(port, "POST", "/v1/add", {
+            "cap_ids": ["sharded0000000#enc#0"], "embeddings": [new],
+            "brands": [0]})
+        after = http(port, "POST", "/v1/topk", {"brand_ids": [0], "k": TOPK})
+    finally:
+        stop(server, thread)
+    steady = np.array(lat[1:])
+    log("12b: /v1/topk, %d brands x k=%d over %d int8 posts in %d shards: "
+        "first %.2f ms; next %d: p50 %.2f ms, p99 %.2f ms"
+        % (N_BRANDS, TOPK, n_before, SERVE_SHARDS, lat[0], len(steady),
+           float(np.percentile(steady, 50)), float(np.percentile(steady,
+                                                                  99))))
+    want = [[p["cap_id"] for p in r["posts"]] for r in phase4["results"]]
+    for reply in replies:
+        got = [[p["cap_id"] for p in r["posts"]] for r in reply["results"]]
+        if got != want:
+            fail("the sharded service's posts differ from phase 4's")
+        for b, r in enumerate(reply["results"]):
+            names = [index.cap_ids[i] for i in single["idxs"][b]]
+            if [p["cap_id"] for p in r["posts"]] != names or [
+                    p["score"] for p in r["posts"]] != [
+                        float(v) for v in single["vals"][b]]:
+                fail("the sharded service's answer for brand %d differs "
+                     "from one K3 call's" % b)
+    log("12b: every answer equals phase 4's service's posts and one K3 "
+        "call's posts and scores")
+    top = after["results"][0]["posts"][0]["cap_id"]
+    if (added["n_posts"] != n_before + 1 or top != "sharded0000000#enc#0"
+            or index.shard_size != -(-(n_before + 1) // SERVE_SHARDS)
+            or len(index.posts()) != SERVE_SHARDS):
+        fail("after /v1/add the sharded service answered %s (n_posts %s)"
+             % (top, added))
+    log("12b: /v1/add -> %d posts, re-sharded into %d shards of %d rows; the "
+        "next query ranks the new post first" % (added["n_posts"],
+                                                 SERVE_SHARDS,
+                                                 index.shard_size))
+    return {"p50_ms": float(np.percentile(steady, 50)),
+            "p99_ms": float(np.percentile(steady, 99))}
+
+
+def sharded_ivf(idx, dev):
+    """12c: phase 4b's IVF sidecar with its lists over 4 shards on the card
+    against the same sidecar unsharded: 8 single-brand queries at nprobe 8
+    and 64, both probe modes, equal; a query's ms on the host clock."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch.parallel.mesh import ServingMesh
+    from fancyrec_tpu_torch.serving.ivf import IVFIndex
+
+    side = os.path.join(idx, "ivf")
+    one = IVFIndex.load(side, device=dev)
+    four = IVFIndex.load(side, device=dev).shard_to_mesh(
+        ServingMesh((dev,) * SERVE_SHARDS))
+    qs = np.load(os.path.join(idx, "brand_embeddings.npy"))[:8]
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    for probe in ("cosine", "bound"):
+        for npb in (8, 64):
+            v1, i1 = one.query(qs, k=TOPK, nprobe=npb, probe=probe)
+            v4, i4 = four.query(qs, k=TOPK, nprobe=npb, probe=probe)
+            if not (np.array_equal(i1, i4) and np.array_equal(v1, v4)):
+                fail("the IVF query over %d list shards at nprobe %d (%s) "
+                     "differs from the unsharded one" % (SERVE_SHARDS, npb,
+                                                         probe))
+            ms1 = host_ms(lambda: one.query(qs[:1], k=TOPK, nprobe=npb,
+                                            probe=probe))
+            ms4 = host_ms(lambda: four.query(qs[:1], k=TOPK, nprobe=npb,
+                                             probe=probe))
+            log("12c: IVF %s nprobe %d, 8 brands: %d list shards equal to "
+                "one; 1 brand %.3f ms sharded, %.3f ms unsharded (host "
+                "clock, mean of 20)" % (probe, npb, SERVE_SHARDS, ms4, ms1))
+    del one, four
+    torch.cuda.empty_cache()
+
+
+def ranked_build(phase4, dev):
+    """12d: `index build` over two ranks sharing the card (gloo,
+    --mesh_shape 2,1) on phase 4's collection and checkpoint: the cap ids
+    of phase 4's one-process build in its order, the rows within
+    RANK_BUILD_TOL, K1 launched on each rank. -> the ranks' summed
+    launches."""
+    import numpy as np
+    from fancyrec_tpu_torch.io.bigfile import BigFileReader
+
+    work = os.path.dirname(phase4["idx"])
+    out = os.path.join(work, "index_2rank")
+    argv = ["build", out, "--checkpoint", phase4["ckpt"], "--rootpath",
+            phase4["root"], "--collection", "insCartrain", "--batch_size",
+            str(B_ENC), "--device", dev.type, "--mesh_shape", "2,1"]
+    t0 = time.time()
+    ranks = run_ranks("build", os.path.join(work, "rank_build"), argv,
+                      DP_RANKS)
+    wall = time.time() - t0
+    n = phase4["n_built"]
+    got, want = (BigFileReader(out, delimiter="\t"),
+                 BigFileReader(phase4["idx"], delimiter="\t"))
+    rows = got.read_rows(np.arange(got.nr_of_rows))
+    ref = want.read_rows(np.arange(n))
+    for r in ranks:
+        log("12d: build rank %d/%d (%s): %.2f s wall, device peak %.2f GB, "
+            "launches %s" % (r["rank"], r["world"], r["backend"], r["wall_s"],
+                             r["peak_bytes"] / 1e9, r["counts"]))
+        if r["counts"]["gru_scan"] != -(-n // B_ENC):
+            fail("build rank %d launched gru_scan %d times for %d batches"
+                 % (r["rank"], r["counts"]["gru_scan"], -(-n // B_ENC)))
+    if got.names != want.names[:n]:
+        fail("the ranked build's cap ids differ from one process's")
+    err = float(np.abs(rows - ref).max())
+    log("12d: index build over %d ranks, %d posts: %.1f s (the world's "
+        "wall); cap ids in the one-process order, rows max |diff| %.3g "
+        "(tolerance atol %g, rtol %g)" % (DP_RANKS, got.nr_of_rows, wall,
+                                          err, RANK_BUILD_TOL["atol"],
+                                          RANK_BUILD_TOL["rtol"]))
+    np.testing.assert_allclose(rows, ref, **RANK_BUILD_TOL)
+    load = lambda d, f: np.load(os.path.join(d, f))  # noqa: E731
+    if not np.array_equal(load(out, "brands.npy"),
+                          load(phase4["idx"], "brands.npy")[:n]):
+        fail("the ranked build's brand labels differ from one process's")
+    np.testing.assert_allclose(load(out, "brand_embeddings.npy"),
+                               load(phase4["idx"], "brand_embeddings.npy"),
+                               **RANK_BUILD_TOL)
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def sharded_serving_path(phase4, dev):
+    """Phase 12: sharded serving on phase 4's index (a-d above); launch
+    counts zeroed just before 12b and 12d and read just after."""
+    import torch
+    t_phase = time.time()
+    idx = phase4["idx"]
+    records, single = check_k3_shards(idx, dev)
+    torch.cuda.empty_cache()
+    zero_counts()
+    served = sharded_service(idx, phase4["reply"], single, dev)
+    serve_counts = read_counts()
+    log("12b: sharded serving path launches: %s" % serve_counts)
+    torch.cuda.empty_cache()
+    sharded_ivf(idx, dev)
+    zero_counts()
+    build_counts = ranked_build(phase4, dev)
+    log("12d: ranked build path launches (summed over the ranks): %s"
+        % build_counts)
+    expect = SERVE_SHARDS * (N_REQUESTS + 1)
+    if serve_counts["topk_int8"] != expect:
+        fail("the sharded service launched K3 %d times, not %d"
+             % (serve_counts["topk_int8"], expect))
+    log("sharded serving phase in %.1f s" % (time.time() - t_phase))
+    return {"per_shard": records, "serve_counts": serve_counts,
+            "build_counts": build_counts, **served}
+
+
 def main():
     try:
         import torch
@@ -3918,6 +4284,9 @@ def main():
         export_path(work, served, dev)
         artifact = read_counts()
         log("artifact path launches: %s" % artifact)
+        # phase 12 serves phase 4's index again
+        phase4 = {k: served[k] for k in ("idx", "ckpt", "root", "n_built")}
+        phase4["reply"] = served["reply"]
         del served
         torch.cuda.empty_cache()
         # 5. training: the card's step against the CPU's, then the trainer
@@ -3969,6 +4338,12 @@ def main():
         # and one update at (2, 2), the tester at (1, 2)
         tp = tensor_parallel_path(root, dev, sass, dp["one_loss"])
         kernels += tp["records"]
+        torch.cuda.empty_cache()
+        # 12. sharded serving: K3 on post shards, the sharded service, the
+        # IVF lists over shards, the index build over two ranks
+        sh = sharded_serving_path(phase4, dev)
+        next(k for k in kernels if k["name"] == "topk_int8")[
+            "per_shard"] = sh["per_shard"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
@@ -3981,10 +4356,14 @@ def main():
              "data-parallel evaluation": dp["eval_counts"],
              "tensor-parallel training": tp["train_counts"],
              "tensor-parallel step 2x2": tp["step_counts"],
-             "tensor-parallel evaluation": tp["eval_counts"]}
-    # K1-fwd also runs inside the exported programs, K3 on the IVF path's
-    # exact single-brand queries: their records count those launches too
-    home = {"gru_scan": "serving+artifact", "topk_int8": "serving+IVF serving",
+             "tensor-parallel evaluation": tp["eval_counts"],
+             "sharded serving": sh["serve_counts"],
+             "ranked index build": sh["build_counts"]}
+    # K1-fwd also runs inside the exported programs and the ranks' index
+    # build, K3 on the IVF path's exact single-brand queries and on the
+    # shards of the sharded service: their records count those launches too
+    home = {"gru_scan": "serving+artifact+ranked index build",
+            "topk_int8": "serving+IVF serving+sharded serving",
             "cosine_scores": "evaluation"}
     for k in kernels:
         k.setdefault("path", home.get(k["name"], "training"))
@@ -4016,7 +4395,7 @@ def main():
     print(json.dumps({"kernels": [
         {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path",
                                      "launches_by_path", "shape", "a_total",
-                                     "a_off")
+                                     "a_off", "per_shard")
          if k in kern}
         for kern in kernels]}))
     print(smi_line)

@@ -5,7 +5,8 @@ Port of fancyrec_tpu/ops/similarity.py. Its two Pallas kernels are CUDA
 here, each with its plain PyTorch version beside it:
 `cosine_scores_pallas` is `csrc/cosine_scores.cu` (`cosine_scores_ref`),
 the evaluation's brands x posts cosine; `retrieval_topk_fused_int8` is
-`csrc/topk_int8.cu` (`topk_int8_ref`), the int8 serving query.
+`csrc/topk_int8.cu` (`topk_int8_ref`), the int8 serving query, which
+`distributed_retrieval_topk` runs once a post shard.
 
 Selection everywhere orders by (score descending, index ascending), the
 tie rule of lax.top_k, so the port returns the JAX package's indices.
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -457,3 +458,61 @@ def topk_int8(brands: torch.Tensor, posts_q: torch.Tensor,
     if brands.device.type == "cpu":
         return topk_int8_ref(brands, posts_q, posts_inv, k, n_valid)
     return topk_int8_cuda(brands, posts_q, posts_inv, k, n_valid)
+
+
+def distributed_retrieval_topk(brands: torch.Tensor,
+                               post_shards: Sequence[torch.Tensor], k: int,
+                               *, n_valid: Optional[int] = None,
+                               shard_size: Optional[int] = None,
+                               posts_inv: Optional[Sequence[torch.Tensor]]
+                               = None, fused: bool = False,
+                               block: int = 4096
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over posts split into shards, each on its own device: the JAX
+    package's `distributed_retrieval_topk` from one process.
+
+    Shard s holds global rows [s * shard_size, (s + 1) * shard_size) and
+    ranks its first clip(n_valid - s * shard_size, 0, shard_size) of them:
+    `topk_int8` when fused (the CUDA kernel on a card; posts_inv, one
+    inverse-norm vector a shard, required), else `retrieval_topk`. Every
+    shard is launched before anything waits on a device. The shards'
+    candidates, their indices made global, go to the first shard's device
+    in shard order and one top-k by (value desc, index asc) merges them:
+    as `lax.top_k` over JAX's tiled all-gather, ties go to the lower global
+    row, so the answer is the single-device one. A slot with no valid
+    candidate holds -inf, at the global index of its shard's filler (s *
+    shard_size for the fused shards, whose filler is local row 0).
+    -> (values (B, k) f32, indices (B, k) int32) on the first shard's
+    device."""
+    shards = list(post_shards)
+    if not shards:
+        raise ValueError("distributed_retrieval_topk needs a post shard")
+    shard_size = shards[0].shape[0] if shard_size is None else shard_size
+    if any(p.shape[0] != shard_size for p in shards):
+        raise ValueError("every post shard must hold shard_size = %d rows, "
+                         "got %s" % (shard_size,
+                                     [p.shape[0] for p in shards]))
+    invs = [None] * len(shards) if posts_inv is None else list(posts_inv)
+    if len(invs) != len(shards):
+        raise ValueError("posts_inv needs one vector a shard")
+    if fused and (posts_inv is None
+                  or any(p.dtype != torch.int8 for p in shards)):
+        raise ValueError("fused=True needs an int8 index + posts_inv")
+    total = shard_size * len(shards)
+    n_valid = total if n_valid is None else int(n_valid)
+    home = shards[0].device
+    vals, idxs = [], []
+    for s, (posts, inv) in enumerate(zip(shards, invs)):
+        local = min(max(n_valid - s * shard_size, 0), shard_size)
+        q = brands.to(posts.device, non_blocking=True)
+        if fused:
+            v, i = topk_int8(q, posts, inv, k, n_valid=local)
+        else:
+            v, i = retrieval_topk(q, posts, k, block=block, n_valid=local,
+                                  posts_inv=inv)
+        vals.append(v.to(home, non_blocking=True))
+        idxs.append((i + s * shard_size).to(home, non_blocking=True))
+    # shard-major candidates: a stable sort keeps the lower global row first
+    # among equal values, as lax.top_k keeps the lower position
+    v, sel = _topk_desc(torch.cat(vals, 1), k)
+    return v, torch.gather(torch.cat(idxs, 1), 1, sel.long())

@@ -116,6 +116,14 @@ def is_primary() -> bool:
     return rank() == 0
 
 
+def barrier() -> None:
+    """Every rank of the world waits here for the others: so that the
+    primary's writes land before another rank reads them, and every rank's
+    reads come before the primary writes. A no-op outside a world."""
+    if world_size() > 1:
+        dist.barrier()
+
+
 def primary_decision(value: int) -> int:
     """Every rank adopts the primary's value (a skip or exit decision from
     files that may exist on the primary only). Identity outside a world."""

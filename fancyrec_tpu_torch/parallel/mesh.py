@@ -28,6 +28,12 @@ layouts (a Linear's weight is (out, in), the transpose of a flax kernel):
 As in the JAX package's `_rule_for`, a tensor whose split dimension the
 model axis does not divide stays replicated. Adam's moments follow their
 parameters (the rules key on the names the moments share).
+
+Serving lays out devices, not ranks (`ServingMesh`, `serving_mesh`): the
+JAX package serves a mesh from one controller, a process whose posts are
+sharded over its host's devices, and so does the port, one process that
+holds post shard s on device s of a list. That list follows the JAX
+`build_mesh` rules over the host's cards.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.parallel import collectives
 
 
@@ -181,6 +188,51 @@ def process_batch_shard(mesh: Mesh, batch_size: int
     if mesh.data <= 1 or batch_size % mesh.data:
         return None
     return (mesh.data_rank, mesh.data)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """The devices of one serving process: post shard s lives on
+    devices[s], along the JAX mesh's data axis. A device may repeat, so
+    several shards can share one card (or the CPU)."""
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a serving mesh needs at least one device")
+        object.__setattr__(self, "devices",
+                           tuple(torch.device(d) for d in self.devices))
+
+    @property
+    def shards(self) -> int:
+        return len(self.devices)
+
+
+def visible_devices(device: str = "cuda") -> Tuple[torch.device, ...]:
+    """The devices a serving mesh may take: every card of the host for
+    'cuda' (or 'cuda:N'; raises without one), the one CPU for 'cpu'."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return (dev,)
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+
+
+def serving_mesh(mesh_shape: str = "",
+                 devices: Optional[Sequence] = None) -> ServingMesh:
+    """The JAX `build_mesh` rules over devices (the host's cards when
+    None): "" or "auto" shards over every device, "N" means "N,1", a shape
+    smaller than the device count takes the leading devices, and one that
+    needs more raises. The data axis holds the shards. Where the JAX mesh
+    replicates a data shard over the M devices of its model row, the port
+    keeps one copy, on the first of them."""
+    devices = tuple(visible_devices() if devices is None else devices)
+    spec = "" if mesh_shape == "auto" else mesh_shape
+    data, model = parse_mesh_shape(spec) or (len(devices), 1)
+    if data * model > len(devices):
+        raise ValueError("mesh %s needs %d devices, have %d"
+                         % ((data, model), data * model, len(devices)))
+    return ServingMesh(tuple(devices[s * model] for s in range(data)))
 
 
 def require_divisible_batch(mesh: Mesh, batch_size: int,

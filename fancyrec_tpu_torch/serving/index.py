@@ -1,21 +1,35 @@
 """Serving: persistent post-embedding indexes + brand -> top-k post query.
 
-Port of fancyrec_tpu/serving/index.py on one device. The on-disk index is
-the JAX package's (a BigFile of post embeddings with tab-delimited cap ids,
+Port of fancyrec_tpu/serving/index.py. The on-disk index is the JAX
+package's (a BigFile of post embeddings with tab-delimited cap ids,
 brands.npy, brand_embeddings.npy, index_meta.json, and the int8 sidecar
 feature.int8.bin + inv_norms.npy), so an index built by either package
 serves in the other; so does the IVF-Flat sidecar under <index>/ivf
 (`serving/ivf.py`, built by `ivf-build`, read by `query(..., nprobe>0)`).
-Not ported: meshes.
+
+Meshes, as in the JAX package, on two layouts:
+  * build and add run data-parallel over the ranks of a world
+    (`torchrun --nproc_per_node R ... build ... --mesh_shape R,1`, the
+    tester's layout): each rank encodes its slice of every batch at the
+    global batch-max lengths, the slices are gathered in collate order,
+    and only the primary writes the index;
+  * a query process holds the posts in shards, one a device of a
+    `parallel.mesh.ServingMesh` (`PostIndex(mesh=...)`, `query
+    --mesh_shape`: the host's cards by the JAX `build_mesh` rules), and
+    answers with `ops.similarity.distributed_retrieval_topk`. The rows pad
+    to a multiple of the shard count and the pad rows never rank. The JAX
+    package pads to its fused block times the shards, since its Pallas
+    grid takes whole blocks; the port's K3 takes any shard length, so the
+    port pads to the shard multiple only.
 
 CLI (runs on CUDA unless --device cpu):
   python -m fancyrec_tpu_torch.serving.index build out/ --checkpoint ... \
-      --rootpath ... --collection ...
+      --rootpath ... --collection ... [--mesh_shape R,1]
   python -m fancyrec_tpu_torch.serving.index add out/ --rootpath ... \
-      --collection newposts
+      --collection newposts [--mesh_shape R,1]
   python -m fancyrec_tpu_torch.serving.index ivf-build out/ --quantize int8
   python -m fancyrec_tpu_torch.serving.index query out/ --brands 0,3 --k 10 \
-      [--nprobe 8]
+      [--nprobe 8] [--mesh_shape auto]
 """
 
 from __future__ import annotations
@@ -31,7 +45,8 @@ import torch
 from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.io.bigfile import BigFileReader, BigFileWriter
 from fancyrec_tpu_torch.ops.similarity import (
-    quantize_rows_int8_np, retrieval_topk, topk_int8)
+    distributed_retrieval_topk, quantize_rows_int8_np, retrieval_topk,
+    topk_int8)
 
 
 def load_collection(ckpt, rootpath: str, collection: str,
@@ -77,22 +92,31 @@ def load_collection(ckpt, rootpath: str, collection: str,
 
 def _encode_collection(ckpt, rootpath: str, collection: str,
                        batch_size: int, bert_vocab: str,
-                       device: torch.device):
+                       device: torch.device, mesh=None):
     """Encode one collection with a loaded checkpoint -> (cap_ids, brands,
-    post_embs, cfg, model)."""
+    post_embs, cfg, model). Under a world's mesh (`parallel.mesh.Mesh`)
+    each data slot encodes its slice of every batch and every rank returns
+    the whole collection; the model ranks of a slot split the weights."""
     from fancyrec_tpu_torch.data.loader import BatchLoader
     from fancyrec_tpu_torch.eval.evaluator import encode_data
     from fancyrec_tpu_torch.models import FancyRec
+    from fancyrec_tpu_torch.parallel.mesh import (
+        process_batch_shard, require_divisible_batch)
 
     cfg, dataset = load_collection(ckpt, rootpath, collection, bert_vocab)
+    pshard = None
+    if mesh is not None:
+        require_divisible_batch(mesh, batch_size)
+        pshard = process_batch_shard(mesh, batch_size)
     # train-time bucket config rides the checkpoint: length-sort the encode
     # order so bucketed padding bites (rows scatter back by dataset index)
     bucketing = bool(cfg.token_buckets_list or cfg.frame_buckets_list)
     loader = BatchLoader(dataset, batch_size, final_batch="pad",
-                         grouped="sort" if bucketing else "off")
+                         grouped="sort" if bucketing else "off",
+                         process_shard=pshard)
 
-    model = FancyRec(cfg)
-    model.load_state_dict(ckpt["state_dict"])
+    model = FancyRec(cfg, mesh)
+    model.load_full_state_dict(ckpt["state_dict"])
     model.to(device).eval()
     brands, post_embs = encode_data(model, loader, cfg.common_embedding_size,
                                     device,
@@ -103,15 +127,23 @@ def _encode_collection(ckpt, rootpath: str, collection: str,
 
 def build_index(checkpoint_path: str, rootpath: str, collection: str,
                 out_dir: str, batch_size: int = 128, bert_vocab: str = "",
-                device="cuda") -> int:
-    """Encode every post of a collection into an on-disk index."""
+                device="cuda", mesh=None) -> int:
+    """Encode every post of a collection into an on-disk index. In a world
+    (mesh: this rank's `parallel.mesh.Mesh`, device: its device) every
+    rank encodes and only the primary writes."""
     from fancyrec_tpu_torch.eval.evaluator import brand_embeddings
+    from fancyrec_tpu_torch.parallel.distributed import barrier, is_primary
     from fancyrec_tpu_torch.train.checkpoints import load_any
 
     dev = resolve_device(device)
     ckpt = load_any(checkpoint_path)
     cap_ids, brands, post_embs, cfg, model = _encode_collection(
-        ckpt, rootpath, collection, batch_size, bert_vocab, dev)
+        ckpt, rootpath, collection, batch_size, bert_vocab, dev, mesh)
+    # a collective where the model axis splits the brand tables
+    b_embs = brand_embeddings(model, cfg.brand_num, dev).cpu().numpy()
+    if not is_primary():
+        barrier()           # no rank leaves before the index is written
+        return len(cap_ids)
 
     # a rebuild must drop sidecars derived from the old embeddings: the
     # int8 cache (mtime ordering cannot tell a same-second rebuild) and the
@@ -129,7 +161,6 @@ def build_index(checkpoint_path: str, rootpath: str, collection: str,
                        delimiter="\t") as w:
         w.write_batch(cap_ids, post_embs)
     np.save(os.path.join(out_dir, "brands.npy"), brands)
-    b_embs = brand_embeddings(model, cfg.brand_num, dev).cpu().numpy()
     np.save(os.path.join(out_dir, "brand_embeddings.npy"), b_embs)
     with open(os.path.join(out_dir, "index_meta.json"), "w") as f:
         f.write(json.dumps({"collection": collection,
@@ -137,14 +168,16 @@ def build_index(checkpoint_path: str, rootpath: str, collection: str,
                             "brand_num": cfg.brand_num,
                             "dim": cfg.common_embedding_size,
                             "n_posts": len(cap_ids)}))
+    barrier()
     return len(cap_ids)
 
 
 def add_collection_to_index(index_dir: str, rootpath: str, collection: str,
                             batch_size: int = 128, bert_vocab: str = "",
-                            device="cuda") -> int:
+                            device="cuda", mesh=None) -> int:
     """Encode a new collection with the index's own checkpoint and append
-    its posts (incremental index update; no rebuild)."""
+    its posts (incremental index update; no rebuild). In a world, as
+    `build_index`: every rank encodes, the primary appends."""
     from fancyrec_tpu_torch.train.checkpoints import load_any
 
     dev = resolve_device(device)
@@ -152,7 +185,7 @@ def add_collection_to_index(index_dir: str, rootpath: str, collection: str,
         meta = json.loads(f.read())
     ckpt = load_any(meta["checkpoint"])
     cap_ids, brands, post_embs, _, _ = _encode_collection(
-        ckpt, rootpath, collection, batch_size, bert_vocab, dev)
+        ckpt, rootpath, collection, batch_size, bert_vocab, dev, mesh)
     return append_to_index(index_dir, cap_ids, post_embs, brands)
 
 
@@ -163,7 +196,11 @@ def append_to_index(index_dir: str, cap_ids, post_embs, brands) -> int:
     id.txt / shape.txt / brands.npy / index_meta.json are rewritten.
     Duplicate cap_ids are rejected (BigFile names are unique). Returns
     the new total post count. Open PostIndex instances must refresh().
+    In a world every rank validates against the store as it was, then
+    only the primary writes, and no rank returns before it has written.
     """
+    from fancyrec_tpu_torch.parallel.distributed import barrier, is_primary
+
     store = BigFileReader(index_dir, delimiter="\t")
     post_embs = np.asarray(post_embs, np.float32)
     brands = np.asarray(brands, np.int32)
@@ -179,6 +216,10 @@ def append_to_index(index_dir: str, cap_ids, post_embs, brands) -> int:
         raise ValueError("duplicate ids within the appended batch")
     if np.isnan(post_embs).any():
         raise ValueError("NaN rows in appended embeddings")
+    barrier()
+    if not is_primary():
+        barrier()
+        return store.nr_of_rows + len(cap_ids)
 
     with open(os.path.join(index_dir, "feature.bin"), "ab") as f:
         f.write(np.ascontiguousarray(post_embs).tobytes())
@@ -198,6 +239,7 @@ def append_to_index(index_dir: str, cap_ids, post_embs, brands) -> int:
     meta["n_posts"] = len(names)
     with open(meta_path, "w") as f:
         f.write(json.dumps(meta))
+    barrier()
     return len(names)
 
 
@@ -231,21 +273,59 @@ def fused_eligible(quantize: str, k: int, dim: int) -> bool:
     return quantize == "int8" and 1 <= k <= 128 and dim % 4 == 0
 
 
+def shard_rows(rows: np.ndarray, inv, devices):
+    """Rows (N, D) and their inverse norms (N,) or None, padded with zero
+    rows to a multiple of len(devices) and cut into that many contiguous
+    shards of ceil(N / S) rows -> ([shard s on devices[s]], [its inverse
+    norms] or None). Each part is an allocation of its own, so every
+    shard's rows start on an allocation boundary whatever the width."""
+    n_shards = len(devices)
+    size = -(-rows.shape[0] // n_shards)
+    pad = size * n_shards - rows.shape[0]
+    if pad:
+        rows = np.concatenate([rows, np.zeros((pad, rows.shape[1]),
+                                              rows.dtype)])
+        if inv is not None:
+            inv = np.concatenate([inv, np.zeros(pad, np.float32)])
+
+    def put(a, dev):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+    parts = [slice(s * size, (s + 1) * size) for s in range(n_shards)]
+    shards = [put(rows[p], dev) for p, dev in zip(parts, devices)]
+    invs = (None if inv is None
+            else [put(inv[p], dev) for p, dev in zip(parts, devices)])
+    return shards, invs
+
+
 class PostIndex:
-    """Query interface over a built index directory, on one device.
+    """Query interface over a built index directory.
 
     quantize="int8" keeps the index int8 on the device (quantized on the
     host, so loads ship 1 byte/elem); a query that `fused_eligible` admits
     answers with the fused int8 score+top-k, the others with
     `retrieval_topk` over the same int8 rows. device_resident=False loads
     the posts at the first exact query (an IVF-only caller never does).
+
+    mesh (a `parallel.mesh.ServingMesh` of S > 1 devices) shards the posts
+    (`shard_rows`): the rows pad to a multiple of S, shard s and the int8
+    sidecar's inverse norms beside it live on mesh.devices[s], and queries
+    run `distributed_retrieval_topk`, routed as the single-device path
+    routes them. `posts()` is then the list of shards. The IVF sidecar's
+    lists shard over the same devices (`IVFIndex.shard_to_mesh`). The
+    first device of the mesh takes the place of `device`: the queries'
+    brands and the merged answers live there. A mesh of one device is the
+    single-device path on that device.
     """
 
     def __init__(self, index_dir: str, quantize: str = "", device="cuda",
-                 device_resident: bool = True):
+                 device_resident: bool = True, mesh=None):
         if quantize not in ("", "int8"):
             raise ValueError("quantize must be '' or 'int8'")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else resolve_device(mesh.devices[0]))
+        self._shards = 1 if mesh is None else mesh.shards
         self.quantize = quantize
         self._index_dir = index_dir
         self.brand_embs = np.load(
@@ -255,7 +335,8 @@ class PostIndex:
             self.posts()
 
     def refresh(self) -> None:
-        """(Re)read the store after append_to_index; drops the device copy."""
+        """(Re)read the store after append_to_index; drops the device copy
+        (or its shards), which the next query loads (and shards) again."""
         self.store = BigFileReader(self._index_dir, delimiter="\t")
         self.cap_ids = self.store.names
         self.brands = np.load(os.path.join(self._index_dir, "brands.npy"))
@@ -275,7 +356,7 @@ class PostIndex:
         Its packed row indices point into the store it was built from;
         ivf_meta.json records that store's row count (source_posts), and a
         mismatch marks the sidecar stale: the ANN path refuses until
-        `ivf-build` runs again."""
+        `ivf-build` runs again. Over a mesh its lists are sharded."""
         if self._ivf is None:
             self._ivf_stale = ""
             ivf_dir = os.path.join(self._index_dir, "ivf")
@@ -292,6 +373,8 @@ class PostIndex:
                     return None
                 from fancyrec_tpu_torch.serving.ivf import IVFIndex
                 self._ivf = IVFIndex.load(ivf_dir, device=self.device)
+                if self._shards > 1:
+                    self._ivf.shard_to_mesh(self.mesh)
         return self._ivf
 
     def _load_quantized(self):
@@ -325,14 +408,27 @@ class PostIndex:
             pass
         return q, inv
 
-    def posts(self) -> torch.Tensor:
+    @property
+    def shard_size(self) -> int:
+        """Rows a shard holds (`shard_rows`)."""
+        return -(-self.n_posts // self._shards)
+
+    def posts(self):
+        """The device-resident rows: one tensor, or over a mesh the list
+        of shards."""
         if self._posts is None:
+            inv = None
             if self.quantize == "int8":
                 rows, inv = self._load_quantized()
-                self._posts_inv = torch.from_numpy(inv).to(self.device)
             else:
                 rows = self.store.read_rows(np.arange(self.n_posts))
-            self._posts = torch.from_numpy(rows).to(self.device)
+            if self._shards == 1:
+                self._posts = torch.from_numpy(rows).to(self.device)
+                if inv is not None:
+                    self._posts_inv = torch.from_numpy(inv).to(self.device)
+            else:
+                self._posts, self._posts_inv = shard_rows(
+                    rows, inv, self.mesh.devices)
         return self._posts
 
     def query(self, brand_ids: Sequence[int], k: int = 10,
@@ -359,7 +455,12 @@ class PostIndex:
         q = torch.from_numpy(self.brand_embs[np.asarray(brand_ids)]).to(
             self.device)
         posts = self.posts()
-        if fused_eligible(self.quantize, k, self.store.ndims):
+        fused = fused_eligible(self.quantize, k, self.store.ndims)
+        if self._shards > 1:
+            vals, idxs = distributed_retrieval_topk(
+                q, posts, k, n_valid=self.n_posts, shard_size=self.shard_size,
+                posts_inv=self._posts_inv, fused=fused, block=block)
+        elif fused:
             vals, idxs = topk_int8(q, posts, self._posts_inv, k,
                                    n_valid=self.n_posts)
         else:
@@ -401,6 +502,13 @@ def build_ivf_sidecar(index_dir: str, nlist: int = None, iters: int = 10,
             "seconds": ivf.build_seconds}
 
 
+_ENCODE_MESH_HELP = (
+    "'' or 'auto' = encode data-parallel over every rank of the world "
+    "(one process outside a world); 'R,M' = over R*M ranks (torchrun), "
+    "the model ranks of a slot splitting the weights; a shape the world "
+    "does not fill raises")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="post-embedding index tool")
     common = argparse.ArgumentParser(add_help=False)
@@ -414,6 +522,7 @@ def main(argv=None):
     b.add_argument("--collection", required=True)
     b.add_argument("--batch_size", type=int, default=128)
     b.add_argument("--bert_vocab", default="")
+    b.add_argument("--mesh_shape", default="", help=_ENCODE_MESH_HELP)
     ad = sub.add_parser("add", parents=[common])
     ad.add_argument("index_dir")
     ad.add_argument("--rootpath", required=True)
@@ -422,6 +531,7 @@ def main(argv=None):
                          "checkpoint) and append")
     ad.add_argument("--batch_size", type=int, default=128)
     ad.add_argument("--bert_vocab", default="")
+    ad.add_argument("--mesh_shape", default="", help=_ENCODE_MESH_HELP)
     iv = sub.add_parser("ivf-build", parents=[common])
     iv.add_argument("index_dir")
     iv.add_argument("--nlist", type=int, default=0,
@@ -439,16 +549,26 @@ def main(argv=None):
     q.add_argument("--nprobe", type=int, default=0,
                    help=">0: approximate single-query path over the IVF "
                         "sidecar, probing nprobe coarse clusters")
+    q.add_argument("--mesh_shape", default="",
+                   help="'auto' = shard posts over all local devices; "
+                        "'N' or 'N,1' = over N; '' = single device")
     q.add_argument("--quantize", default="", choices=["", "int8"])
     a = p.parse_args(argv)
+    if a.cmd in ("build", "add"):
+        # join the world the environment describes (none: one process), as
+        # the tester does; every rank encodes, the primary writes
+        from fancyrec_tpu_torch.parallel import distributed
+        from fancyrec_tpu_torch.parallel.mesh import build_mesh
+        device = distributed.initialize_multihost(a.device)
+        mesh = build_mesh("" if a.mesh_shape == "auto" else a.mesh_shape)
     if a.cmd == "build":
         n = build_index(a.checkpoint, a.rootpath, a.collection, a.out_dir,
-                        a.batch_size, a.bert_vocab, device=a.device)
+                        a.batch_size, a.bert_vocab, device=device, mesh=mesh)
         print(json.dumps({"indexed_posts": n, "out": a.out_dir}))
     elif a.cmd == "add":
         n = add_collection_to_index(a.index_dir, a.rootpath, a.collection,
                                     a.batch_size, a.bert_vocab,
-                                    device=a.device)
+                                    device=device, mesh=mesh)
         print(json.dumps({"total_posts": n, "index": a.index_dir}))
     elif a.cmd == "ivf-build":
         info = build_ivf_sidecar(a.index_dir, nlist=a.nlist or None,
@@ -458,8 +578,13 @@ def main(argv=None):
                                  device=a.device)
         print(json.dumps(info))
     else:
+        mesh = None
+        if a.mesh_shape:
+            from fancyrec_tpu_torch.parallel.mesh import (
+                serving_mesh, visible_devices)
+            mesh = serving_mesh(a.mesh_shape, visible_devices(a.device))
         index = PostIndex(a.index_dir, quantize=a.quantize, device=a.device,
-                          device_resident=a.nprobe == 0)
+                          device_resident=a.nprobe == 0, mesh=mesh)
         ids = [int(x) for x in a.brands.split(",")]
         vals, names = index.query(ids, k=a.k, nprobe=a.nprobe)
         for b_id, v, n in zip(ids, vals, names):

@@ -1,6 +1,6 @@
 """IVF-Flat approximate retrieval: single-query serving over large indexes.
 
-Port of fancyrec_tpu/serving/ivf.py on one device. A single brand query on
+Port of fancyrec_tpu/serving/ivf.py. A single brand query on
 the exact path reads the whole index (about 1 GB at 1M x 1024 int8); IVF
 probes `nprobe` of `nlist` coarse clusters and scores only their posts
 exactly, so the only recall loss is a post whose list was not probed.
@@ -15,6 +15,9 @@ exactly, so the only recall loss is a post whose list was not probed.
     choices go to always-probed overflow lists.
   * int8 mode scores with the exact integer dots of `ops/similarity`
     (per-row max-abs quantization; only 1/||q|| survives per row).
+  * `shard_to_mesh` splits the lists over the devices of a serving mesh
+    (capacity past one card); a sharded query answers as the JAX
+    package's sharded query does.
 
 Every argmax and top-k orders ties as the JAX package's `argmax` and
 `lax.top_k` do: value descending, index ascending (`_topk_ordered`). The
@@ -321,8 +324,19 @@ def _default_sizes(n: int, nlist: Optional[int], cap: Optional[int]):
     return nlist, -(-cap // 32) * 32
 
 
+def _pad_k(vals: torch.Tensor, ids: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(vals, ids) of up to k candidates, padded to k with -inf / -1."""
+    pad = k - vals.shape[0]
+    if pad > 0:
+        vals = torch.cat([vals, vals.new_full((pad,), float("-inf"))])
+        ids = torch.cat([ids, ids.new_full((pad,), -1)])
+    return vals, ids
+
+
 class IVFIndex:
-    """Packed IVF-Flat index over post embeddings, on one device.
+    """Packed IVF-Flat index over post embeddings, on one device, or with
+    its lists sharded over several (`shard_to_mesh`).
 
       centroids   (nlist, D)  f32, unit rows
       packed      (nlist + overflow_lists, cap, D)  f32 unit rows or their
@@ -350,6 +364,10 @@ class IVFIndex:
                           else put(inv_norms, torch.float32))
         self.radii = None if radii is None else put(radii, torch.float32)
         n_lists, self.cap = self.packed_idx.shape
+        self._int8 = self.packed.dtype == torch.int8
+        # the ServingMesh the lists are sharded over (shard_to_mesh), and
+        # the lists a shard holds
+        self.mesh, self._per = None, n_lists
         self.nlist = int(self.centroids.shape[0])
         self.overflow_lists = n_lists - self.nlist
         # fraction of posts that exhausted their centroid choices at build
@@ -368,8 +386,11 @@ class IVFIndex:
         """Per-list member angular radius (radians) -> self.radii: the
         `quantile` order statistic of arccos(cos(member, centroid)) over
         the list's valid members (int8 packs recover the member direction
-        through inv_norms); 0 for an empty list."""
-        int8 = self.packed.dtype == torch.int8
+        through inv_norms); 0 for an empty list. Runs before
+        shard_to_mesh."""
+        if self.mesh is not None:
+            raise ValueError("compute_radii runs on an unsharded index")
+        int8 = self._int8
         qf = float(quantile)
         cap = self.cap
         out = []
@@ -540,10 +561,45 @@ class IVFIndex:
         out.build_seconds = seconds
         return out
 
-    def shard_to_mesh(self, mesh, axis: str = "data") -> "IVFIndex":
-        raise NotImplementedError(
-            "the sharded IVF index (the JAX package's shard_to_mesh) is not "
-            "ported: the port serves IVF on one device")
+    def shard_to_mesh(self, mesh) -> "IVFIndex":
+        """Shard the packed lists over the devices of `mesh` (a
+        `parallel.mesh.ServingMesh`): the capacity mode of the JAX package.
+
+        The list axis splits contiguously: shard s holds lists [s * per,
+        (s + 1) * per) on mesh.devices[s], the axis padded with empty lists
+        to the shard multiple (id -1, inverse norm 1: they never rank).
+        packed, packed_idx and inv_norms become lists of those parts. The
+        centroids and radii stay whole on the first device: the JAX
+        package replicates them so that every device selects the same
+        probes itself, and here the one process selects them once a query.
+        Queries then return exactly what the JAX package's sharded query
+        returns (`_query_sharded`)."""
+        if self.mesh is not None:
+            raise ValueError("the IVF index is already sharded")
+        n_shards = mesh.shards
+        n_lists = self.packed_idx.shape[0]
+        pad = (-n_lists) % n_shards
+        packed, packed_idx, inv = self.packed, self.packed_idx, self.inv_norms
+        if pad:
+            packed = torch.cat([packed, packed.new_zeros(
+                (pad,) + tuple(packed.shape[1:]))])
+            packed_idx = torch.cat([packed_idx, packed_idx.new_full(
+                (pad, self.cap), -1)])
+            if inv is not None:
+                inv = torch.cat([inv, inv.new_ones((pad, self.cap))])
+        per = (n_lists + pad) // n_shards
+        part = lambda t, s: t[s * per:(s + 1) * per].to(  # noqa: E731
+            mesh.devices[s]).clone()
+        self.packed = [part(packed, s) for s in range(n_shards)]
+        self.packed_idx = [part(packed_idx, s) for s in range(n_shards)]
+        if inv is not None:
+            self.inv_norms = [part(inv, s) for s in range(n_shards)]
+        self.device = resolve_device(mesh.devices[0])
+        self.centroids = self.centroids.to(self.device)
+        if self.radii is not None:
+            self.radii = self.radii.to(self.device)
+        self.mesh, self._per = mesh, per
+        return self
 
     # ---------------------------------------------------------- query --
 
@@ -567,40 +623,79 @@ class IVFIndex:
                 device=probe.device)])
         return probe
 
-    def _query_one(self, q: torch.Tensor, k: int, nprobe: int, mode: str):
-        probe = self.probe_lists(q, nprobe, mode)
-        int8 = self.packed.dtype == torch.int8
-        if int8:
-            # exact integer dots of the quantized vectors over their norms
+    def _query_form(self, q: torch.Tensor):
+        """What the lists are scored against: (q8 int8, 1/||q8||) for an
+        int8 index (its exact integer dots over their norms), else the
+        unit query."""
+        if self._int8:
             amax = torch.amax(torch.abs(q))
             scale = torch.where(amax > 0, torch.full_like(amax, 127.0) / amax,
                                 torch.zeros_like(amax))
             q8 = torch.clamp(torch.round(q * scale), -127, 127).to(torch.int8)
-            inv_q = torch.rsqrt(torch.clamp(
+            return q8, torch.rsqrt(torch.clamp(
                 torch.sum(torch.square(q8.float())), min=1.0))
-        else:
-            qn = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-12)
-        d = self.packed.shape[-1]
+        return q / torch.clamp(torch.linalg.vector_norm(q), min=1e-12), None
+
+    def _scan(self, form, lists: torch.Tensor, packed, packed_idx, inv
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The scores and post ids of every slot of `lists` (in that order)
+        of one packed part -> ((slots,) f32, -inf on empty slots; ids)."""
+        qf, inv_q = form
+        d = packed.shape[-1]
         parts = []
-        for lo in range(0, probe.shape[0], _PROBE_CHUNK):
-            lists = probe[lo:lo + _PROBE_CHUNK]
-            blk = self.packed.index_select(0, lists).reshape(-1, d)
-            if int8:
-                acc = _int_dots(q8[None], blk)[0]
-                pinv = self.inv_norms.index_select(0, lists).reshape(-1)
+        for lo in range(0, lists.shape[0], _PROBE_CHUNK):
+            chunk = lists[lo:lo + _PROBE_CHUNK]
+            blk = packed.index_select(0, chunk).reshape(-1, d)
+            if inv_q is not None:
+                acc = _int_dots(qf[None], blk)[0]
+                pinv = inv.index_select(0, chunk).reshape(-1)
                 parts.append(acc * inv_q * pinv)
             else:
-                parts.append(blk @ qn)
-        s = torch.cat(parts)
-        ids = self.packed_idx.index_select(0, probe).reshape(-1)
-        s = torch.where(ids < 0, torch.full_like(s, float("-inf")), s)
+                parts.append(blk @ qf)
+        s = torch.cat(parts) if parts else packed.new_zeros(
+            0, dtype=torch.float32)
+        ids = packed_idx.index_select(0, lists).reshape(-1)
+        return torch.where(ids < 0, torch.full_like(s, float("-inf")), s), ids
+
+    def _query_one(self, q: torch.Tensor, k: int, nprobe: int, mode: str):
+        probe = self.probe_lists(q, nprobe, mode)
+        s, ids = self._scan(self._query_form(q), probe, self.packed,
+                            self.packed_idx, self.inv_norms)
         vals, local = _topk_ordered(s[None], min(k, s.shape[0]))
-        vals, out_idx = vals[0], ids[local[0]]
-        if k > vals.shape[0]:
-            pad = k - vals.shape[0]
-            vals = torch.cat([vals, vals.new_full((pad,), float("-inf"))])
-            out_idx = torch.cat([out_idx, out_idx.new_full((pad,), -1)])
-        return vals, out_idx
+        return _pad_k(vals[0], ids[local[0]], k)
+
+    def _query_sharded(self, qs: torch.Tensor, k: int, nprobe: int,
+                       mode: str):
+        """The JAX package's sharded query from one process. The probes of
+        every query are selected once on the first device and read on the
+        host; shard s scans the probed lists it owns, in probe order, and
+        keeps its top kk = min(k, (nprobe + overflow) * cap) (a shard that
+        owns every probed list must not drop a true top-k post), padded to
+        kk with -inf / -1 as JAX's masked slots are. Shard-major, the
+        candidates merge by (value desc, position asc), as JAX's
+        all-gather and `lax.top_k` merge them, then pad to k."""
+        probes = torch.stack([self.probe_lists(q, nprobe, mode)
+                              for q in qs]).cpu().numpy()
+        kk = min(k, probes.shape[1] * self.cap)
+        home = self.mesh.devices[0]
+        invs = self.inv_norms or [None] * self.mesh.shards
+        out = []
+        for q, probe in zip(qs, probes):
+            vals, ids = [], []
+            for s, dev in enumerate(self.mesh.devices):
+                mine = probe[probe // self._per == s] - s * self._per
+                lists = torch.from_numpy(mine).to(dev)
+                sc, sid = self._scan(self._query_form(q.to(dev)), lists,
+                                     self.packed[s], self.packed_idx[s],
+                                     invs[s])
+                v, pos = _topk_ordered(sc[None], min(kk, sc.shape[0]))
+                v, i = _pad_k(v[0], sid[pos[0]], kk)
+                vals.append(v.to(home, non_blocking=True))
+                ids.append(i.to(home, non_blocking=True))
+            v, pos = _topk_ordered(torch.cat(vals)[None], min(k, kk * len(
+                vals)))
+            out.append(_pad_k(v[0], torch.cat(ids)[pos[0]], k))
+        return out
 
     def query(self, query_embs, k: int = 10, nprobe: int = 8,
               probe: Optional[str] = None
@@ -622,7 +717,10 @@ class IVFIndex:
         if mode not in ("bound", "cosine"):
             raise ValueError("probe must be 'bound' or 'cosine'")
         with torch.no_grad():
-            outs = [self._query_one(q, k, nprobe, mode) for q in qs]
+            if self.mesh is not None:
+                outs = self._query_sharded(qs, k, nprobe, mode)
+            else:
+                outs = [self._query_one(q, k, nprobe, mode) for q in qs]
         vals = torch.stack([v for v, _ in outs]).cpu().numpy()
         idxs = torch.stack([i for _, i in outs]).to(torch.int32).cpu().numpy()
         return vals, idxs
@@ -632,9 +730,15 @@ class IVFIndex:
     def save(self, path: str) -> None:
         """The JAX package's sidecar files: centroids.npy, packed_idx.npy,
         packed.bin (raw rows), inv_norms.npy (int8), radii.npy and
-        ivf_meta.json."""
+        ivf_meta.json. A sharded index saves its lists whole, without the
+        pad lists."""
         os.makedirs(path, exist_ok=True)
-        host = lambda t: t.cpu().numpy()  # noqa: E731
+        n_lists = self.nlist + self.overflow_lists
+
+        def host(t):
+            if isinstance(t, list):
+                return torch.cat([p.cpu() for p in t])[:n_lists].numpy()
+            return t.cpu().numpy()
         np.save(os.path.join(path, "centroids.npy"), host(self.centroids))
         np.save(os.path.join(path, "packed_idx.npy"), host(self.packed_idx))
         packed = host(self.packed)

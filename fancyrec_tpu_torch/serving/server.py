@@ -1,7 +1,8 @@
 """HTTP serving: brand -> top-k posts over a built index.
 
 Port of fancyrec_tpu/serving/server.py. A long-lived process loads a
-PostIndex (serving/index.py) on one device and answers JSON queries:
+PostIndex (serving/index.py) on one device, or sharded over the devices
+of a serving mesh (--mesh_shape), and answers JSON queries:
 
   GET  /healthz                     liveness + index summary
   GET  /metrics                     per-route request counts, error
@@ -29,7 +30,7 @@ arrivals get 429 + Retry-After (_AdmissionGate).
 
 CLI: python -m fancyrec_tpu_torch.serving.server INDEX_DIR [--port 8080]
          [--artifact DIR] [--quantize int8] [--default_nprobe 0]
-         [--max_pending 64] [--device cuda|cpu]
+         [--max_pending 64] [--mesh_shape auto] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -282,12 +283,12 @@ class FancyRecService:
     def __init__(self, index_dir: str, artifact_dir: str = None,
                  quantize: str = "", default_nprobe: int = 0,
                  device_resident: bool = True, max_pending: int = 64,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from fancyrec_tpu_torch.serving.index import PostIndex
 
         self._lock = threading.Lock()          # serialize all device work
         self.index = PostIndex(index_dir, quantize=quantize, device=device,
-                               device_resident=device_resident)
+                               device_resident=device_resident, mesh=mesh)
         self._index_dir = index_dir
         self.default_nprobe = default_nprobe
         self.stats = _RouteStats()
@@ -480,12 +481,22 @@ def main(argv=None):
     p.add_argument("--max_pending", type=int, default=64,
                    help="max concurrent device-bound requests before new "
                         "arrivals are shed with 429 + Retry-After")
+    p.add_argument("--mesh_shape", default="",
+                   help="'auto' = shard the device-resident posts over "
+                        "all local devices for multi-chip serving; "
+                        "'N' or 'N,1' explicit; '' = single device")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
+    mesh = None
+    if a.mesh_shape:
+        from fancyrec_tpu_torch.parallel.mesh import (
+            serving_mesh, visible_devices)
+        mesh = serving_mesh(a.mesh_shape, visible_devices(a.device))
     service = FancyRecService(a.index_dir, artifact_dir=a.artifact or None,
                               quantize=a.quantize,
                               default_nprobe=a.default_nprobe,
-                              max_pending=a.max_pending, device=a.device)
+                              max_pending=a.max_pending, device=a.device,
+                              mesh=mesh)
     server = make_server(service, a.host, a.port)
     print(json.dumps({"serving": "http://%s:%d" % server.server_address,
                       **service.healthz()}), flush=True)

@@ -26,6 +26,7 @@ import torch
 from fancyrec_tpu.serving import ivf as jivf
 from fancyrec_tpu.serving.index import PostIndex as JaxPostIndex
 from fancyrec_tpu.serving.index import build_ivf_sidecar as jax_ivf_sidecar
+from fancyrec_tpu_torch.parallel.mesh import ServingMesh
 from fancyrec_tpu_torch.serving import ivf as pivf
 from fancyrec_tpu_torch.serving.index import (
     PostIndex, append_to_index, build_ivf_sidecar)
@@ -293,8 +294,17 @@ def test_ivf_build_cli_query_nprobe_and_staleness(tmp_path, capsys):
     with pytest.raises(ValueError, match="ivf-build"):
         PostIndex(bare, device_resident=False, device="cpu").query(
             [0], k=3, nprobe=2)
-    with pytest.raises(NotImplementedError, match="one device"):
-        pivf.IVFIndex.load(info["out"], device="cpu").shard_to_mesh(None)
+    # the sidecar's lists sharded over two devices (the CPU twice) answer
+    # as the single-device sidecar does; a second sharding is refused
+    one = pivf.IVFIndex.load(info["out"], device="cpu")
+    two = pivf.IVFIndex.load(info["out"], device="cpu").shard_to_mesh(
+        ServingMesh(("cpu", "cpu")))
+    qs = np.load(os.path.join(idx_dir, "brand_embeddings.npy"))
+    for a, b in zip(two.query(qs, k=5, nprobe=3), one.query(qs, k=5,
+                                                            nprobe=3)):
+        assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="already sharded"):
+        two.shard_to_mesh(ServingMesh(("cpu",)))
 
 
 def _req(port, method, path, body=None):
