@@ -125,12 +125,24 @@ Phases:
      ranks sharing the card (gloo, --mesh_shape 2,1) on phase 4's
      collection: phase 4's cap ids in its order, the rows within
      RANK_BUILD_TOL of its rows, K1 launched on each rank.
+  13. sequence parallelism and the BERT pipeline over the model axis, on
+     phase 5's tree (ranks sharing the card, gloo, dropouts off): K1-fwd,
+     K1-bwd and K2 at (b)'s batch of 12 against their plain versions; (a)
+     the trainer CLI for one recipe epoch at --mesh_shape 1,2 --seq_shard:
+     its first update within phase 5's tolerances of 10c's; (b) the trainer
+     CLI for one epoch at --mesh_shape 1,3 --pp_stages 3 --batch_size 12
+     (one BERT layer a stage): its first update against a one-process
+     update of the same batch, BERT and its Adam moments bit-equal on the
+     three ranks after two updates, the tensors the rules split at 3; (c)
+     the tester at (1, 3) on (b)'s checkpoint: its metrics equal the
+     one-process tester's. Each rank prints its ms per update, device
+     peak and launches.
 The kernels' launch counts are zeroed just before each of the nine paths
 (4, 4b, 4d, 5c, 6, 7's trainer, 7's tester, 12b and 12d) and read just
 after: each kernel must have run on its path (K1-fwd on 4, 4d and 12d's
 ranks, K3 on 4, 4b and 12b).
-Phase 10's and 11's ranks zero and read their own counts around their
-CLI's main (or their one update); the records of phase 10 (K1, K2 at B=4,
+Phase 10's, 11's and 13's ranks zero and read their own counts around
+their CLI's main (or their one update); the records of phase 10 (K1, K2 at B=4,
 K4 at a shard) count the launches summed over the ranks of 10d (training)
 and 10e (evaluation), those of K2 on aspect shards over 11b's ranks (B=8,
 the trainer at (1, 2)) and 11c's (B=4, the update at (2, 2)). K2 at M=4
@@ -139,7 +151,8 @@ Phase 9 runs cuDNN's convolutions and none of the six kernels: its counts
 are printed, not required.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failed phase exits non-zero; without a
+{"ok": true, "device": {...}}. `python3 chip_smoke.py seq_pp` runs phase 13
+alone on a host of 3 or more cards, a card a rank over NCCL. Any failed phase exits non-zero; without a
 CUDA device, or without the package beside this script, it exits
 non-zero before printing any result.
 """
@@ -434,22 +447,46 @@ def check_topk_quantization(brands, posts_q, posts_inv):
         fail("the brand scales inside topk_int8 differ from the plain ones")
 
 
-def device_ms(fn, calls):
+def device_ms(fn, calls, tries=2):
     """The union of the intervals of the kernels that `calls` calls of fn
-    launch, in torch.profiler, a call."""
+    launch, in torch.profiler, a call; NaN where the profiler returned no
+    kernel record or a number that is not a whole number a call in each of
+    `tries` sessions. Late in a long process it drops records (of K2's
+    forward C entry at B=12: all of them in this script's phase 13, one a
+    session in a short process that had run K1 and K2 before, none in a
+    fresh one), and a union over the rest would read low."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.time_range.end > e.time_range.start]
-    return _union_ms(spans) / calls if spans else float("nan")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.time_range.end > e.time_range.start]
+        if spans and len(spans) % calls == 0:
+            return _union_ms(spans) / calls
+    return float("nan")
+
+
+def json_record(rec, keys):
+    """rec's `keys` that it has, every non-finite float in them, nested
+    ones too, as None (JSON null): a device time where the profiler saw no
+    kernel."""
+    def finite(v):
+        if isinstance(v, float):
+            return v if math.isfinite(v) else None
+        if isinstance(v, dict):
+            return {k: finite(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [finite(x) for x in v]
+        return v
+    return {k: finite(rec[k]) for k in keys if k in rec}
 
 
 def call_kernels(fn):
@@ -3134,9 +3171,12 @@ DP_TIMEOUT = 420              # seconds a world of ranks may take
 # first update written to `out`.first.pt by rank 0 (whole: a model rank's
 # shards gathered over its model group), and a RANK_RESULT line with this
 # rank's kernel launches, engine, times and device peak; the tester's
-# encoded posts and brands written to `out`.enc.<rank>.npz.
+# encoded posts and brands written to `out`.enc.<rank>.npz. Under
+# --pp_stages, after the second update: a digest of this rank's BERT
+# parameters and their Adam moments ("bert_digest"), which every model
+# rank must share.
 _RANK_MAIN = r"""
-import json, os, sys, time
+import hashlib, json, os, sys, time
 here, mode, out, argv = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(
     sys.argv[4])
 sys.path.insert(0, here)
@@ -3144,7 +3184,7 @@ import numpy as np
 import torch
 torch.use_deterministic_algorithms(True, warn_only=True)
 import chip_smoke
-from fancyrec_tpu_torch.models import brand
+from fancyrec_tpu_torch.models import brand, encoders
 from fancyrec_tpu_torch.parallel import collectives
 from fancyrec_tpu_torch.parallel.mesh import gather_state_dict
 from fancyrec_tpu_torch.eval import tester
@@ -3155,11 +3195,25 @@ def _no_brand_dropout(self, *a, **k):
     self.p = 0.0
 if mode != "step_drop":
     brand.BrandAspects.__init__ = _no_brand_dropout
-seen = {"dump_s": 0.0}
+seen = {"dump_s": 0.0, "updates": 0}
 _step, _epoch, _datasets = (trainer.train_step, trainer.train_epoch,
                             trainer.build_datasets)
+def bert_digest(model, opt):
+    h = hashlib.sha256()
+    moments = opt.state_dict()["state"]
+    for i, (n, p) in enumerate(model.named_parameters()):
+        if ".bert." in n:
+            for t in (p.detach(), moments[i]["exp_avg"],
+                      moments[i]["exp_avg_sq"]):
+                h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 def first_update(model, opt, cfg, state, sb):
     state, metrics = _step(model, opt, cfg, state, sb)
+    seen["updates"] += 1
+    if seen["updates"] == 2 and getattr(model, "pp", False):
+        t0 = time.time()
+        seen["bert_digest"] = bert_digest(model, opt)
+        seen["dump_s"] += time.time() - t0
     if "loss" not in seen:
         t0 = time.time()
         seen.update(loss=float(metrics["loss"]),
@@ -3189,6 +3243,17 @@ def datasets(cfg):
     return ds
 trainer.train_step, trainer.train_epoch = first_update, epoch
 trainer.build_datasets = datasets
+# the towers' calls of the time split and the pipeline: [in training (grad
+# mode), in evaluation]
+split_calls = {n: [0, 0] for n in ("seq_shard_pool", "bert_pipeline_forward")}
+def counted(name):
+    fn = getattr(encoders, name)
+    def call(*a, **k):
+        split_calls[name][0 if torch.is_grad_enabled() else 1] += 1
+        return fn(*a, **k)
+    setattr(encoders, name, call)
+for n in split_calls:
+    counted(n)
 chip_smoke.zero_counts()
 t0 = time.time()
 _ranking = tester.test_post_ranking
@@ -3259,6 +3324,7 @@ res = {"rank": collectives.rank(), "world": collectives.world_size(),
        "device": (str(torch.cuda.current_device())
                   if torch.cuda.is_available() else "cpu"), "result": got,
        "wall_s": wall, "counts": chip_smoke.read_counts(),
+       "split_calls": split_calls,
        "peak_bytes": (torch.cuda.max_memory_allocated()
                       if torch.cuda.is_available() else 0), **seen}
 if stats:
@@ -4211,7 +4277,200 @@ def sharded_serving_path(phase4, dev):
             "build_counts": build_counts, **served}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sequence parallelism and the BERT pipeline over the model axis
+# ---------------------------------------------------------------------------
+
+PP_STAGES = 3      # the recipe's 3 BERT layers, one a stage
+B_PP = 12          # a batch the 3 microbatches divide (bin/instance.sh's 8
+                   # does not)
+B_PP_TEST = 96     # the tester's batch at (1, 3): 3 microbatches of 32
+
+
+def _launch_check(ranks, micro, what):
+    """Each rank ran K1-fwd on every microbatch and validation batch,
+    K1-bwd and K2 once a microbatch, K4 once (the validation)."""
+    for r in ranks:
+        c = r["counts"]
+        if not (c["gru_scan"] >= micro and c["gru_scan_bwd"] == micro
+                and c["aspect_dropout_fwd"] == micro
+                and c["aspect_dropout_bwd"] == micro
+                and c["cosine_scores"] == 1):
+            fail("%s rank %d launched %s for %d microbatches and one "
+                 "validation" % (what, r["rank"], c, micro))
+
+
+def _split_check(ranks, micro, what, seq=0, pipe=0):
+    """Each rank's towers called `seq_shard_pool` `seq` times and BERT's
+    pipeline `pipe` times a training microbatch: the split code ran, not
+    the replicated pools or the sequential stack it falls back to."""
+    for r in ranks:
+        c = r["split_calls"]
+        log("%s rank %d: seq_shard_pool %d in training, %d in evaluation; "
+            "bert_pipeline_forward %d / %d" % (
+                what, r["rank"], *c["seq_shard_pool"],
+                *c["bert_pipeline_forward"]))
+        if (c["seq_shard_pool"][0] != seq * micro
+                or c["bert_pipeline_forward"][0] != pipe * micro):
+            fail("%s rank %d split %s for %d microbatches (want the time "
+                 "split %d and the pipeline %d a microbatch)"
+                 % (what, r["rank"], c, micro, seq, pipe))
+
+
+def _log_train(tag, what, ranks):
+    for r in ranks:
+        log("%s: %s, rank %d/%d (%s): %d updates, %.1f ms per update (the "
+            "first update's dump excluded), device peak %.2f GB, %.1f s "
+            "wall; first update loss %.6f, grad norm %.6f; launches %s (an "
+            "update: K1-bwd %.3g, K2-fwd %.3g, K2-bwd %.3g)"
+            % (tag, what, r["rank"], r["world"], r["backend"], r["updates"],
+               r["ms_per_update"], r["peak_bytes"] / 1e9, r["wall_s"],
+               r["loss"], r["grad_norm"], r["counts"],
+               *(r["counts"][k] / max(r["updates"], 1) for k in (
+                   "gru_scan_bwd", "aspect_dropout_fwd",
+                   "aspect_dropout_bwd"))))
+
+
+def seq_pp_path(root, dev, sass, l_one):
+    """Phase 13: --seq_shard and --pp_stages over the model axis, on phase
+    5's tree, the ranks sharing the card (gloo), every dropout off,
+    deterministic algorithms on. First K1-fwd, K1-bwd and K2 at b's batch
+    of 12 and K1-fwd at c's of 96 against their plain versions (a's shapes
+    are phase 5's and 11's: B = 8, K2 on 1000 aspects); then
+      a. the trainer CLI for one recipe epoch at --mesh_shape 1,2
+         --seq_shard (batch 8): its first update within phase 5's card
+         tolerances of phase 10c's one-process update of the same batch,
+         the time split run twice a microbatch (visual, text);
+      b. the trainer CLI for one epoch at --mesh_shape 1,3 --pp_stages 3
+         --batch_size 12 (the recipe's 3 BERT layers, one a stage): its
+         first update against a one-process update of the same batch of
+         12, the pipeline run once a microbatch, BERT and its Adam
+         moments bit-equal on the 3 ranks after two updates; the tensors
+         the rules split at 3;
+      c. the tester at (1, 3) on b's checkpoint (batch 96, so 3
+         microbatches of 32; BERT's pipeline run) against this process's
+         tester.
+    l_one: the loss of 10c's one-process first update. -> {"records": the
+    kernels at batch 12 and 96, "train_counts", "pp_counts",
+    "eval_counts"}, the counts summed over a's, b's and c's ranks."""
+    import torch
+    from fancyrec_tpu_torch.eval import tester
+    from fancyrec_tpu_torch.models import FancyRec
+    from fancyrec_tpu_torch.parallel.mesh import Mesh
+    from fancyrec_tpu_torch.train import checkpoints
+
+    t_phase = time.time()
+    records = k1_records(dev, B_PP, torch.float32, True, SEED + 31)
+    records += check_aspect_dropout(dev, B_PP, sass)[0]
+    for r in records:
+        r["path"] = "pipeline training"
+    # the tester's batch of c (its last batch padded to it)
+    records += k1_records(dev, B_PP_TEST, torch.float32, False, SEED + 32)
+    records[-1]["path"] = "pipeline evaluation"
+    torch.cuda.empty_cache()
+    flags = ["--device", str(dev), "--dropout", "0", "--bert_dropout", "0"]
+
+    # a. --seq_shard at (1, 2)
+    sp = run_ranks("train", os.path.join(root, "sp_12"), instance_args(
+        root, "sp_12", 1) + flags + ["--mesh_shape", "1,2", "--seq_shard"], 2)
+    _log_train("13a", "trainer at --mesh_shape 1,2 --seq_shard", sp)
+    _launch_check(sp, sp[0]["updates"] * ACCUM, "13a")
+    _split_check(sp, sp[0]["updates"] * ACCUM, "13a", seq=2)
+    if len({r["result"] for r in sp}) != 1:
+        fail("13a: the model ranks report different bests")
+    text, ok = update_diff(torch.load(os.path.join(root, "dp_one.first.pt")),
+                           torch.load(os.path.join(root, "sp_12.first.pt")),
+                           l_one, sp[0]["loss"])
+    log("13a: (1, 2) --seq_shard vs one process (phase 10c), first update: "
+        "%s" % text)
+    if not ok:
+        fail("the --seq_shard update disagrees with the one-process update")
+
+    # b. --pp_stages 3 at (1, 3), batch 12, against one process
+    batch = ["--batch_size", str(B_PP)]
+    one = run_ranks("step", os.path.join(root, "pp_one"), instance_args(
+        root, "pp_one", 1) + flags + batch, 0)
+    pp = run_ranks("train", os.path.join(root, "pp_13"), instance_args(
+        root, "pp_13", 1) + flags + batch + [
+            "--mesh_shape", "1,%d" % PP_STAGES, "--pp_stages",
+            str(PP_STAGES)], PP_STAGES)
+    _log_train("13b", "trainer at --mesh_shape 1,%d --pp_stages %d, batch "
+               "%d" % (PP_STAGES, PP_STAGES, B_PP), pp)
+    _launch_check(pp, pp[0]["updates"] * ACCUM, "13b")
+    _split_check(pp, pp[0]["updates"] * ACCUM, "13b", pipe=1)
+    if len({r["result"] for r in pp}) != 1:
+        fail("13b: the stages report different bests")
+    text, ok = update_diff(torch.load(os.path.join(root, "pp_one.first.pt")),
+                           torch.load(os.path.join(root, "pp_13.first.pt")),
+                           one[0]["loss"], pp[0]["loss"])
+    log("13b: (1, %d) --pp_stages %d vs one process at batch %d (%.2f s, "
+        "device peak %.2f GB), first update: %s"
+        % (PP_STAGES, PP_STAGES, B_PP, one[0]["result"]["update_s"],
+           one[0]["peak_bytes"] / 1e9, text))
+    if not ok:
+        fail("the pipelined update disagrees with the one-process update")
+    digests = [r.get("bert_digest") for r in pp]
+    log("13b: BERT and its Adam moments after two updates, sha256 a rank: "
+        "%s (%s)" % ([d[:16] if d else d for d in digests],
+                     "bit-equal" if len(set(digests)) == 1 and digests[0]
+                     else "DIFFER"))
+    if not digests[0] or len(set(digests)) != 1:
+        fail("BERT differs across the pipeline's stages after two updates")
+    ck = checkpoints.load_checkpoint(os.path.join(
+        root, "model", "pp_13", "model_best.pth.tar"))
+    with torch.device("meta"):
+        model = FancyRec(ck["config"], Mesh(1, PP_STAGES))
+    split = sorted(k for k, d in model.split_dims().items() if d is not None)
+    log("13b: the rules at a model axis of %d under --pp_stages split %s; "
+        "every other tensor whole on each rank (BERT as the pipeline's: "
+        "%s)" % (PP_STAGES, split or "nothing", model.pp))
+    del ck, model
+
+    # c. the tester at (1, 3) on b's checkpoint
+    logdir = os.path.join(root, "model", "pp_13")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_PP_TEST), "--device", str(dev),
+             "--overwrite", "1"]
+    tested = run_ranks("test", os.path.join(root, "pp_test"), targv + [
+        "--mesh_shape", "1,%d" % PP_STAGES], PP_STAGES)
+    t0 = time.time()
+    single = tester.main(targv)._asdict()
+    single_s = time.time() - t0
+    rank_keys, score_keys = ("medr", "meanr", "r1", "r5", "r10"), (
+        "auc", "ndcg10", "ndcg50")
+    got = tested[0]["result"]
+    diff = max(abs(got[k] - single[k]) for k in score_keys)
+    for r in tested:
+        log("13c: tester at --mesh_shape 1,%d, rank %d/%d: %.2f s wall, "
+            "device peak %.2f GB; %s; launches %s"
+            % (PP_STAGES, r["rank"], r["world"], r["wall_s"],
+               r["peak_bytes"] / 1e9, r["result"], r["counts"]))
+        if not all(r["counts"][k] >= 1 for k in ("gru_scan", "cosine_scores")):
+            fail("tester rank %d launched %s" % (r["rank"], r["counts"]))
+        if r["split_calls"]["bert_pipeline_forward"][1] < 1:
+            fail("tester rank %d did not run BERT's pipeline: %s"
+                 % (r["rank"], r["split_calls"]))
+    log("13c: the one-process tester on the same checkpoint: %.2f s wall; "
+        "%s; rank metrics %s, AUC/NDCG max |diff| %.3g (tolerance 1e-6)"
+        % (single_s, single, "equal" if all(got[k] == single[k]
+                                            for k in rank_keys) else "DIFFER",
+           diff))
+    if any(r["result"] != got for r in tested):
+        fail("the tester's stages report different metrics")
+    if not (all(got[k] == single[k] for k in rank_keys) and diff <= 1e-6
+            and all(math.isfinite(v) for v in got.values())):
+        fail("the (1, %d) tester's metrics %s differ from one process's %s"
+             % (PP_STAGES, got, single))
+    sums = lambda rs: {k: sum(r["counts"][k] for r in rs)  # noqa: E731
+                       for k in rs[0]["counts"]}
+    log("sequence-parallel and pipeline phase in %.1f s"
+        % (time.time() - t_phase))
+    return {"records": records, "train_counts": sums(sp),
+            "pp_counts": sums(pp), "eval_counts": sums(tested)}
+
+
 def main():
+    t_script = time.time()
     try:
         import torch
     except ImportError:
@@ -4344,6 +4603,21 @@ def main():
         sh = sharded_serving_path(phase4, dev)
         next(k for k in kernels if k["name"] == "topk_int8")[
             "per_shard"] = sh["per_shard"]
+        torch.cuda.empty_cache()
+        # 13. sequence parallelism and the BERT pipeline: the trainer at
+        # (1, 2) --seq_shard and at (1, 3) --pp_stages 3, the tester at
+        # (1, 3) (each rank counts its own launches)
+        sp = seq_pp_path(root, dev, sass, dp["one_loss"])
+        kernels += sp["records"]
+        # 13a runs K1 and K2 at the shapes of phase 5 and 11b, and 13c K4
+        # at phase 6's
+        for k in kernels:
+            if (k.get("path") == "tensor-parallel training"
+                    or k["name"] == "gru_scan_bwd"):
+                k["path"] = (k.get("path", "training")
+                             + "+sequence-parallel training")
+            if k["name"] == "cosine_scores":
+                k["path"] = "evaluation+pipeline evaluation"
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
@@ -4358,6 +4632,9 @@ def main():
              "tensor-parallel step 2x2": tp["step_counts"],
              "tensor-parallel evaluation": tp["eval_counts"],
              "sharded serving": sh["serve_counts"],
+             "sequence-parallel training": sp["train_counts"],
+             "pipeline training": sp["pp_counts"],
+             "pipeline evaluation": sp["eval_counts"],
              "ranked index build": sh["build_counts"]}
     # K1-fwd also runs inside the exported programs and the ranks' index
     # build, K3 on the IVF path's exact single-brand queries and on the
@@ -4386,23 +4663,69 @@ def main():
     # K2 on the aspect shards of a model axis of 4: checked, on no main
     # path (phase 11 runs model axes of 2)
     log("K2 on aspect shards of M=4, on no main path: %s" % json.dumps(
-        [{k: r[k] for k in keys[:4] + keys[5:] + ("entry_ms", "device_ms",
-                                                  "shape", "a_off")}
-         for r in tp["m4"]]))
+        [json_record(r, keys[:4] + keys[5:] + ("entry_ms", "device_ms",
+                                               "shape", "a_off"))
+         for r in tp["m4"]], allow_nan=False))
 
+    log("the whole script in %.1f s" % (time.time() - t_script))
     # the contract's keys, then, where a record has them, its C entry's time
     # on buffers made once, its kernels' device time, and its path
     print(json.dumps({"kernels": [
-        {k: kern[k] for k in keys + ("entry_ms", "device_ms", "path",
-                                     "launches_by_path", "shape", "a_total",
-                                     "a_off", "per_shard")
-         if k in kern}
-        for kern in kernels]}))
+        json_record(kern, keys + ("entry_ms", "device_ms", "path",
+                                  "launches_by_path", "shape", "a_total",
+                                  "a_off", "per_shard"))
+        for kern in kernels]}, allow_nan=False))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def seq_pp_cards():
+    """`python3 chip_smoke.py seq_pp`: phase 13 alone, on a host with a
+    card a rank (3 or more): the ranks of 13a-13c each take a card of
+    their own and join over NCCL, so the pipeline's point-to-point
+    messages and the model group's collectives stay on the cards. Builds
+    the three kernels of the path, makes phase 5's tree, runs 10c's
+    one-process epoch (the reference of 13a) on the first card, then
+    `seq_pp_path`."""
+    import torch
+    sys.path.insert(0, HERE)
+    from fancyrec_tpu_torch.device import resolve_device
+    from fancyrec_tpu_torch.ops import _build
+    from fancyrec_tpu_torch.utils.fixture import make_fixture
+
+    t0 = time.time()
+    dev = resolve_device("cuda")
+    if torch.cuda.device_count() < PP_STAGES:
+        fail("seq_pp needs %d cards, this host has %d"
+             % (PP_STAGES, torch.cuda.device_count()))
+    log("%d x %s" % (torch.cuda.device_count(), smi_name_power()))
+    _build.build(["gru_scan", "aspect_dropout", "cosine_scores"])
+    work = os.path.join(HERE, "build", "chip_smoke_seq_pp")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        root = os.path.join(work, "insCarTrain")
+        make_fixture(root, brand_num=N_BRANDS,
+                     videos_per_brand=TRAIN_VIDEOS_PER_BRAND,
+                     imgs_per_brand=TRAIN_IMGS_PER_BRAND, feat_dim=D_IN,
+                     frames_per_video=FRAMES, seed=SEED)
+        one = run_ranks("train", os.path.join(root, "dp_one"), instance_args(
+            root, "dp_one", 1) + ["--dropout", "0", "--bert_dropout", "0",
+                                  "--device", "cuda"], 0)
+        log("10c: one process: %.1f ms per update, device peak %.2f GB"
+            % (one[0]["ms_per_update"], one[0]["peak_bytes"] / 1e9))
+        sp = seq_pp_path(root, dev, None, one[0]["loss"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"seq_pp": {k: v for k, v in sp.items()
+                                 if k != "records"},
+                      "cards": torch.cuda.device_count(),
+                      "seconds": time.time() - t0}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["seq_pp"]:
+        seq_pp_cards()
+    else:
+        main()

@@ -3,10 +3,10 @@
 The same dataclass and the same JSON form as `fancyrec_tpu.config`, so a
 config written by either package loads in the other. `mesh_shape` lays
 the ranks of a world out as the (data, model) mesh (`parallel/mesh.py`);
-the fields the port does not implement yet (sequence sharding,
-pipelining) or that only steer JAX (the XLA compile cache, the dropout
-PRNG) are kept for that interchange, and the training CLI refuses them at
-any value but their default.
+`seq_shard` and `pp_stages` shard the time axes and pipeline BERT over
+its model axis. The fields that only steer JAX (the XLA compile cache,
+the dropout PRNG) are kept for that interchange, and the training CLI
+refuses them at any value but their default.
 """
 
 from __future__ import annotations
@@ -424,12 +424,8 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 
 # flags the port does not implement, with the value that means "off" and
-# why: the JAX package's sequence sharding and pipelining (later slices of
-# the port), its dropout PRNG choice and its XLA compile cache
+# why: the JAX package's dropout PRNG choice and its XLA compile cache
 _NOT_PORTED = {
-    "seq_shard": (False, "sequence sharding (--seq_shard) is a later slice "
-                  "of the PyTorch port (ROADMAP.md section 1, still to "
-                  "port, item 1)"),
     "rng_impl": ("threefry", "--rng_impl picks a JAX PRNG; the port draws "
                  "dropout from torch generators"),
     "compilation_cache_dir": ("", "--compilation_cache_dir is XLA's compile "
@@ -440,18 +436,14 @@ _NOT_PORTED = {
 def config_from_args(args: argparse.Namespace) -> Config:
     """The parsed flags -> Config. Raises NotImplementedError for a flag the
     port does not implement, set to anything but off, and ValueError for a
-    malformed --mesh_shape."""
+    malformed --mesh_shape. `Config.finalize` validates --pp_stages against
+    the rest, with the JAX package's messages."""
     vals = vars(args)
     for flag, (off, why) in _NOT_PORTED.items():
         if vals.get(flag, off) != off:
             raise NotImplementedError(
                 "--%s is not implemented by the PyTorch port (got %r): %s"
                 % (flag, vals[flag], why))
-    if vals.get("pp_stages", 0) > 1:
-        raise NotImplementedError(
-            "--pp_stages is not implemented by the PyTorch port (got %r): "
-            "the GPipe BERT schedule is a later slice (ROADMAP.md section "
-            "1, still to port, item 2)" % vals["pp_stages"])
     parse_mesh_shape(vals.get("mesh_shape", ""))
     known = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in vals.items() if k in known})

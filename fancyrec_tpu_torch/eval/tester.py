@@ -17,7 +17,11 @@ are exact (`metrics.ranking_metrics_sharded`); the exits follow the
 primary and only the primary writes mean_metrics.json. At --mesh_shape
 R,M over R*M ranks the model ranks of a slot split the weights as the
 trainer's do (one model code path: the checkpoint's whole tree cut to the
-rank's shard), and the slots split the rows and posts as above.
+rank's shard), and the slots split the rows and posts as above. The
+checkpoint's --seq_shard and --pp_stages apply where the model axis can
+host them (the pipeline where it equals pp_stages, the sequence split
+where it divides the padded lengths); elsewhere BERT runs in sequence and
+the pools replicated, with the same metrics.
 """
 
 from __future__ import annotations
@@ -159,6 +163,10 @@ def main(argv=None):
                              mesh, opt.batch_size))
 
     model = FancyRec(cfg, mesh)
+    if cfg.pp_stages > 1 and not model.pp:
+        print("the checkpoint's --pp_stages %d needs a model axis of %d; "
+              "this mesh has %d, so BERT runs its layers in sequence (the "
+              "same model)" % (cfg.pp_stages, cfg.pp_stages, mesh.model))
     model.load_full_state_dict(ckpt["state_dict"])
     model.to(device).eval()
     brands, post_embs = encode_data(model, loader, cfg.common_embedding_size,

@@ -25,6 +25,11 @@ split too) and takes its input through `collectives.model_copy`;
 `layers.row_parallel`: partial products summed over the model group, then
 its replicated bias). Under `remat` the recompute issues the same
 collectives again, in the same order on every rank.
+
+Pipeline parallelism (`--pp_stages`): `parallel.pipeline.
+bert_pipeline_forward` runs the same module, its embeddings replicated
+and its layer stack as a GPipe schedule over the model group; the layers
+are then whole (no `ffn_shard`).
 """
 
 from __future__ import annotations
@@ -127,13 +132,16 @@ def _remat_layer(layer: BertLayer, hidden, attn_bias):
     """`layer` under torch.utils.checkpoint, its recompute drawing the
     same dropout masks as its forward: the dropouts draw from explicit
     generators, which checkpoint's preserve_rng_state does not cover, so
-    their states are saved before the forward, set for the recompute and
-    put back after it."""
+    the generator each dropout holds at the forward and their states are
+    saved before it, bound and set for the recompute (a caller may have
+    bound other generators since, as the pipeline's per-microbatch ones
+    are unbound after its forward) and put back after it."""
+    drops = [m for m in layer.modules() if isinstance(m, Dropout)]
+    bound = [m.generator for m in drops]
     gens = []
-    for m in layer.modules():
-        if (isinstance(m, Dropout) and m.generator is not None
-                and all(m.generator is not g for g in gens)):
-            gens.append(m.generator)
+    for g in bound:
+        if g is not None and all(g is not h for h in gens):
+            gens.append(g)
     saved = [g.get_state() for g in gens]
     ran = [False]
 
@@ -141,12 +149,17 @@ def _remat_layer(layer: BertLayer, hidden, attn_bias):
         if not ran[0]:
             ran[0] = True
             return layer(h, bias)
+        now_bound = [m.generator for m in drops]
         now = [g.get_state() for g in gens]
+        for m, g in zip(drops, bound):
+            m.generator = g
         for g, s in zip(gens, saved):
             g.set_state(s)
         try:
             return layer(h, bias)
         finally:
+            for m, g in zip(drops, now_bound):
+                m.generator = g
             for g, s in zip(gens, now):
                 g.set_state(s)
 
@@ -172,18 +185,31 @@ class BertEncoder(nn.Module):
         for i in range(cfg.num_hidden_layers):
             setattr(self, "layer_%d" % i, BertLayer(cfg, ffn_shard))
 
-    def forward(self, input_ids, token_type_ids, attention_mask):
+    def embed(self, input_ids, token_type_ids):
+        """The embeddings, their LayerNorm and dropout -> float32 (B, T, H),
+        before the cast to the residual stream's dtype."""
         t = input_ids.shape[1]
         pos = torch.arange(t, device=input_ids.device)
         hidden = (self.word_embeddings[input_ids]
                   + self.position_embeddings[pos][None]
                   + self.token_type_embeddings[token_type_ids])
-        hidden = self.embeddings_drop(self.embeddings_ln(hidden))
-        hidden = hidden.to(self.cfg.dt)       # the residual stream's dtype
+        return self.embeddings_drop(self.embeddings_ln(hidden))
+
+    @staticmethod
+    def attention_bias(attention_mask):
+        """(B, T) 0/1 -> the additive (B, 1, 1, T) float32 key mask."""
         mask = attention_mask.float()
-        attn_bias = ((1.0 - mask)[:, None, None, :]
-                     * torch.finfo(torch.float32).min)
-        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
+        return (1.0 - mask)[:, None, None, :] * torch.finfo(torch.float32).min
+
+    def remat(self) -> bool:
+        """Does a layer call recompute in the backward (`_remat_layer`)?"""
+        return self.cfg.remat and self.training and torch.is_grad_enabled()
+
+    def forward(self, input_ids, token_type_ids, attention_mask):
+        # the residual stream's dtype
+        hidden = self.embed(input_ids, token_type_ids).to(self.cfg.dt)
+        attn_bias = self.attention_bias(attention_mask)
+        remat = self.remat()
         for i in range(self.cfg.num_hidden_layers):
             layer = getattr(self, "layer_%d" % i)
             hidden = (_remat_layer(layer, hidden, attn_bias) if remat

@@ -1,7 +1,6 @@
 """Dual-branch multi-level encoders (visual / text).
 
-Port of fancyrec_tpu/models/encoders.py without its mesh branches
-(sequence sharding, the pipelined BERT stack). With `attn_fusion` (the
+Port of fancyrec_tpu/models/encoders.py. With `attn_fusion` (the
 'attn' fusion head) a tower has no mapping MFC and returns its unmapped,
 unnormalized level concat, as in the JAX package. Training mode
 (`module.train()`) turns on the JAX package's dropouts: after the pooled
@@ -19,6 +18,19 @@ Tensor parallelism: `mapping_shard` is this model rank's part of the
 mapping MFC's input features (row-parallel fc1), `ffn_shard` its part of
 BERT's FFN width; None keeps them whole. The GRUs, the attention pool and
 the conv banks are replicated.
+
+Sequence parallelism (`seq_shard`, the JAX `constrain_seq_sharding` at
+the same two places): the visual bi-GRU's output and BERT's last hidden
+states enter the masked mean and the conv bank with their time axis split
+over the model group (`layers.seq_shard_pool`), where the model group has
+more than one rank and its size divides the padded length; elsewhere, and
+in the bi-GRU text tower, as before. The numbers are the same.
+
+Pipeline parallelism (`pp`): BERT's layer stack runs as a GPipe schedule
+over the model group (`parallel.pipeline.bert_pipeline_forward`), its
+ranks the stages; `FancyRec` sets it where the model axis equals
+--pp_stages, as the JAX `_pp_mesh` requires. Without it the same layers
+run in sequence.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from fancyrec_tpu_torch.models.bert import BertConfig, BertEncoder
 from fancyrec_tpu_torch.models.gru import BiGRU
 from fancyrec_tpu_torch.models.layers import (
     MFC, AttentionPool, ConvBank, Dropout, batch_max_len, l2norm,
-    masked_mean)
+    masked_mean, seq_shard_pool, seq_shardable)
+from fancyrec_tpu_torch.parallel.pipeline import bert_pipeline_forward
 
 
 class VisualBatch(NamedTuple):
@@ -73,10 +86,12 @@ class VisualEncoder(nn.Module):
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
                  dropout: float = 0.2, attn_fusion: bool = False,
-                 dtype: torch.dtype = torch.float32, mapping_shard=None):
+                 dtype: torch.dtype = torch.float32, mapping_shard=None,
+                 seq_shard: bool = False):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.dtype = dtype
+        self.seq_shard = seq_shard
         self.atten = AttentionPool(feat_dim, feat_dim // 4, heads=3,
                                    dtype=dtype)
         self.rnn = BiGRU(feat_dim, rnn_size, packed=False)
@@ -92,8 +107,14 @@ class VisualEncoder(nn.Module):
         org_out = v.mean_origin
         attn_out = self.atten(v.frames, mask, bl)
         gru_seq = self.rnn(v.frames, batch_len=bl)
-        gru_out = self.gru_drop(masked_mean(gru_seq, mask))
-        con_out = self.con_drop(self.convs(gru_seq * mask[..., None], bl))
+        if self.seq_shard and seq_shardable(gru_seq):
+            gru_mean, con = seq_shard_pool(gru_seq, mask, self.convs, bl,
+                                           mask > 0)
+        else:
+            gru_mean = masked_mean(gru_seq, mask)
+            con = self.convs(gru_seq * mask[..., None], bl)
+        gru_out = self.gru_drop(gru_mean)
+        con_out = self.con_drop(con)
         full = [gru_out, con_out, org_out, attn_out]
         if self.concate == "full":
             features = torch.cat(full, dim=1)
@@ -159,9 +180,11 @@ class TextTransformersEncoder(nn.Module):
                  level: str = "1+2+3", norm: bool = False,
                  dropout: float = 0.2, attn_fusion: bool = False,
                  dtype: torch.dtype = torch.float32, mapping_shard=None,
-                 ffn_shard=None):
+                 ffn_shard=None, seq_shard: bool = False,
+                 pp: bool = False):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
+        self.seq_shard, self.pp = seq_shard, pp
         self.bert = BertEncoder(bert, ffn_shard)
         self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes,
                               dtype)
@@ -172,12 +195,21 @@ class TextTransformersEncoder(nn.Module):
     def forward(self, t: TextBatch):
         mask = t.mask
         bl = _batch_len(mask, t.max_len)
-        last_hidden = self.bert(t.tokens, t.type_ids, mask)
-        tf_out = masked_mean(last_hidden, mask.to(last_hidden.dtype))
+        if self.pp:
+            last_hidden = bert_pipeline_forward(self.bert, t.tokens,
+                                                t.type_ids, mask)
+        else:
+            last_hidden = self.bert(t.tokens, t.type_ids, mask)
         pos_valid = torch.arange(mask.shape[1], device=mask.device)[None, :] < bl
-        conv_in = torch.where(pos_valid[..., None], last_hidden,
-                              torch.zeros_like(last_hidden))
-        con_out = self.con_drop(self.convs(conv_in, bl))
+        if self.seq_shard and seq_shardable(last_hidden):
+            tf_out, con = seq_shard_pool(last_hidden, mask, self.convs, bl,
+                                         pos_valid)
+        else:
+            tf_out = masked_mean(last_hidden, mask.to(last_hidden.dtype))
+            conv_in = torch.where(pos_valid[..., None], last_hidden,
+                                  torch.zeros_like(last_hidden))
+            con = self.convs(conv_in, bl)
+        con_out = self.con_drop(con)
         full = [t.bows, tf_out, con_out]
         if self.concate == "full":
             features = torch.cat(full, dim=1)

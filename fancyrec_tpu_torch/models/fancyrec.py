@@ -19,7 +19,12 @@ the JAX package's `_PARAM_RULES` split the parameters (the brand tables'
 aspects, the mapping MFCs' input features, BERT's FFN width), with the
 model group's collectives in its forward. Its state dict is the shard of
 the full one (`parallel.mesh.shard_state_dict`); `split_dims` names the
-split tensors.
+split tensors. Where cfg.pp_stages equals the model axis (`pp`), the
+model ranks are the stages of BERT's pipeline and BERT stays whole on
+each of them (the JAX `skip_bert`); a cfg.pp_stages the mesh cannot host
+(a tester on another model axis) runs BERT in sequence.
+cfg.seq_shard splits the time axes of the towers' pools over the model
+group (`models.encoders`).
 """
 
 from __future__ import annotations
@@ -54,6 +59,10 @@ class FancyRec(nn.Module):
         self.mesh = mesh if mesh is not None and mesh.model > 1 else None
         self._split = None
         part = self.mesh.part if self.mesh else (lambda n: None)
+        transformers = (cfg.text_net == "transformers"
+                        and not cfg.single_modal_visual)
+        self.pp = bool(transformers and cfg.pp_stages > 1 and self.mesh
+                       and self.mesh.model == cfg.pp_stages)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         attn_fusion = cfg.fusion_style == "attn"
         self.brand_encoding = BrandAspects(
@@ -68,7 +77,8 @@ class FancyRec(nn.Module):
                 mapping_out=cfg.visual_mapping_size, concate=cfg.concate,
                 level=cfg.level_vis, norm=cfg.visual_norm,
                 dropout=cfg.dropout, attn_fusion=attn_fusion, dtype=dtype,
-                mapping_shard=part(cfg.visual_mapping_in))
+                mapping_shard=part(cfg.visual_mapping_in),
+                seq_shard=cfg.seq_shard)
         if not cfg.single_modal_visual:
             if cfg.text_net == "bi-gru":
                 self.text_encoding = TextGruEncoder(
@@ -102,7 +112,10 @@ class FancyRec(nn.Module):
                     level=cfg.level_txt, norm=cfg.text_norm,
                     dropout=cfg.dropout, attn_fusion=attn_fusion,
                     dtype=dtype, mapping_shard=part(cfg.text_mapping_in),
-                    ffn_shard=part(cfg.bert_intermediate_size))
+                    ffn_shard=(None if self.pp
+                               else part(cfg.bert_intermediate_size)),
+                    seq_shard=cfg.seq_shard,
+                    pp=self.pp)
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
@@ -129,14 +142,15 @@ class FancyRec(nn.Module):
             else:
                 with torch.device("meta"):
                     full = FancyRec(self.cfg)
-                self._split = param_shardings(self.mesh, full.state_dict())
+                self._split = param_shardings(self.mesh, full.state_dict(),
+                                              self.pp)
         return self._split
 
     def load_full_state_dict(self, full) -> None:
         """Load a whole model's state dict (a checkpoint's, one process's):
         this model rank's shard of it."""
         self.load_state_dict(full if self.mesh is None
-                             else shard_state_dict(full, self.mesh))
+                             else shard_state_dict(full, self.mesh, self.pp))
 
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
         """The whole model's state dict, the split tensors gathered over

@@ -21,6 +21,10 @@ Tensor parallelism: a module built with a `shard` (this model rank's
 (offset, size) of a dimension the model axis splits, `parallel.mesh.Mesh.
 part`) holds only its part of the split weight; `row_parallel` is the
 layer whose input columns are split (Megatron's row-parallel Linear).
+
+Sequence parallelism (`--seq_shard`): `seq_shard_pool` computes a tower's
+masked mean and conv bank with the time axis split over the model group,
+where the JAX package's `constrain_seq_sharding` lets GSPMD split it.
 """
 
 from __future__ import annotations
@@ -156,6 +160,15 @@ class AttentionPool(nn.Module):
         return (weight[..., None] * x).sum(dim=1) / t_batch
 
 
+def conv1d(xt, weight, bias, padding, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Conv(dtype=...) over (B, D, T): the product, then the bias,
+    in dtype (in float32, `nn.Conv1d`'s own call)."""
+    if dtype == torch.float32 and xt.dtype == torch.float32:
+        return F.conv1d(xt, weight, bias, padding=padding)
+    y = F.conv1d(xt.to(dtype), weight.to(dtype), padding=padding)
+    return y + bias.to(dtype)[None, :, None]
+
+
 class ConvBank(nn.Module):
     """Parallel 1-D convolutions over time + masked global max-pool.
 
@@ -174,12 +187,7 @@ class ConvBank(nn.Module):
                     nn.Conv1d(in_dim, kernel_num, ws, padding=ws - 1))
 
     def _conv(self, conv: nn.Conv1d, xt):
-        """flax nn.Conv(dtype=...): the product, then the bias, in dtype."""
-        if self.dtype == torch.float32 and xt.dtype == torch.float32:
-            return conv(xt)
-        y = F.conv1d(xt.to(self.dtype), conv.weight.to(self.dtype),
-                     padding=conv.padding)
-        return y + conv.bias.to(self.dtype)[None, :, None]
+        return conv1d(xt, conv.weight, conv.bias, conv.padding, self.dtype)
 
     def forward(self, x, batch_len):
         xt = x.transpose(1, 2)                          # (B, D, T)
@@ -192,6 +200,74 @@ class ConvBank(nn.Module):
             y = torch.where(valid, y, torch.full_like(y, torch.finfo(y.dtype).min))
             outs.append(y.amax(dim=2))
         return torch.cat(outs, dim=1)
+
+
+def seq_shardable(x: torch.Tensor) -> bool:
+    """Does `seq_shard_pool` split x's time axis: a model group of M > 1
+    ranks and a padded time length T (bucket included) that M divides?
+    Elsewhere it computes replicated, as `constrain_seq_sharding` leaves
+    an activation unconstrained where its dims do not divide the mesh."""
+    m = collectives.model_size()
+    return m > 1 and x.shape[1] % m == 0
+
+
+def seq_shard_pool(x: torch.Tensor, mask: torch.Tensor, convs: ConvBank,
+                   batch_len, conv_keep: torch.Tensor):
+    """(masked_mean(x, mask), convs(where(conv_keep, x, 0), batch_len)) of a
+    replicated (B, T, D) activation x, with the time axis split over the
+    model group (`seq_shardable` must hold): model rank m of M owns the
+    rows [m*T/M, (m+1)*T/M).
+
+    x enters through `collectives.model_copy` once, so the replicated
+    layers before it see the whole grad on every model rank, and so do
+    the conv bank's (replicated) weights, each rank's grad of them being
+    that of its own positions: one flat `model_copy` of them. The mean is
+    the partial sum over the owned rows, summed over the model group
+    (`model_reduce`), over the full valid count. Each conv branch of width
+    ws computes the output positions its rank owns, the last rank also
+    the ws - 1 tail positions [T, T + ws - 1); its ws - 1 halo rows come
+    from the replicated input, zeros outside [0, T), so the forward needs
+    no collective. ReLU, the valid-range mask pos < batch_len + ws - 1,
+    a local max, then the max over the model group (`model_max`). A rank
+    whose positions all lie past the valid range holds finfo.min there.
+
+    mask: (B, T) 0/1; conv_keep: (B or 1, T) bool, the rows of x the conv
+    bank sees (the rest read as zeros); batch_len: the 0-d batch-max
+    valid length (the global batch's under data parallelism)."""
+    m, r = collectives.model_size(), collectives.model_rank()
+    b, t, _ = x.shape
+    n = t // m
+    lo, hi = r * n, (r + 1) * n
+    last = r == m - 1
+    x = collectives.model_copy(x)
+    mask = mask.to(x.dtype)
+    part = torch.einsum("btd,bt->bd", x[:, lo:hi], mask[:, lo:hi])
+    cnt = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+    mean = collectives.model_reduce(part.float()).to(part.dtype) / cnt
+    # the rows [lo - P, hi (+ P on the last rank)) of x padded with P zeros
+    # a side, P the widest branch's ws - 1: local[k] is padded row lo + k
+    p = max(convs.kernel_sizes) - 1
+    keep = conv_keep.expand(b, t)[:, max(lo - p, 0):hi, None]
+    src = x[:, max(lo - p, 0):hi]
+    src = torch.where(keep, src, torch.zeros_like(src))
+    local = F.pad(src, (0, 0, max(p - lo, 0), p if last else 0))
+    xt = local.transpose(1, 2)                          # (B, D, rows)
+    branches = [getattr(convs, "conv_w%d" % ws) for ws in convs.kernel_sizes]
+    weights = [w for c in branches for w in (c.weight, c.bias)]
+    flat = collectives.model_copy(torch.cat([w.reshape(-1) for w in weights]))
+    weights = [v.view_as(w) for w, v in
+               zip(weights, flat.split([w.numel() for w in weights]))]
+    outs = []
+    for k, ws in enumerate(convs.kernel_sizes):
+        end = (t + ws - 1) if last else hi              # owned positions
+        y = F.relu(conv1d(xt[:, :, p - ws + 1:end + p - lo], weights[2 * k],
+                          weights[2 * k + 1], 0, convs.dtype))
+        pos = torch.arange(lo, end, device=x.device)
+        valid = (pos < batch_len + ws - 1)[None, None, :]
+        y = torch.where(valid, y,
+                        torch.full_like(y, torch.finfo(y.dtype).min))
+        outs.append(y.amax(dim=2))
+    return mean, collectives.model_max(torch.cat(outs, dim=1))
 
 
 class BatchNorm1dTorch(nn.Module):

@@ -31,6 +31,23 @@ is replicated and computed identically on every model rank, so the grads
 of the replicated weights come out whole and equal on every model rank,
 with no extra reduction.
 
+Sequence parallelism (`--seq_shard`, `models.layers.seq_shard_pool`):
+model rank m owns the time rows [m*T/M, (m+1)*T/M) of a replicated
+(B, T, D) activation, which enters through `model_copy`. A masked mean
+leaves through `model_reduce` of the partial sums; a max-pool through
+`model_max`: the ranks' local maxima all-gathered over the model group and
+reduced there, whose backward hands each rank its own rows of the grad,
+so the grad reaches only the ranks that hold the maximum.
+
+Pipeline parallelism (`--pp_stages S`, `parallel/pipeline.py`): model
+rank s is stage s of a GPipe schedule. Activations go to stage s+1 and
+their grads back to stage s-1 by point-to-point messages between
+neighbours of the model group (`model_isend`, `model_recv`), in the
+order of the microbatches on both sides of each pair; the last stage's
+output leaves through `model_reduce`, and the stage-local grads of the
+replicated layers are summed over the model group by one flat
+`all_reduce_sum_` a backward.
+
 Each function is the identity where its group has one rank, outside a
 world included. Under gloo (the CPU, or ranks that share a card) a CUDA
 tensor goes through host memory, explicitly, so any gloo build takes it;
@@ -221,3 +238,45 @@ def model_reduce(x: torch.Tensor) -> torch.Tensor:
     if model_size() <= 1:
         return x
     return _ModelReduce.apply(x)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of x over the model group, with autograd: the
+    ranks' x all-gathered (`all_gather` over MODEL, whose backward returns
+    this rank's rows of the grad) and reduced by `amax`, so the grad goes
+    only to the ranks that hold the maximum (split evenly over exact ties,
+    as `amax` splits it). The gather runs in float32, where every value of
+    a lower float dtype is exact. x where the model group has one rank."""
+    if model_size() <= 1:
+        return x
+    parts = all_gather(x.float(), MODEL)
+    return parts.view(model_size(), *x.shape).amax(dim=0).to(x.dtype)
+
+
+def _model_peer(index: int) -> int:
+    """The world rank of model index `index` in this rank's model group."""
+    return data_rank() * model_size() + index
+
+
+def model_isend(t: torch.Tensor, index: int):
+    """Start sending t to model index `index` of this rank's model group ->
+    a handle for `wait_all`, which holds the buffer until the message is
+    out. Under gloo a CUDA tensor goes through host memory."""
+    buf = t.detach().to(comm_device()).contiguous()
+    return dist.isend(buf, _model_peer(index),
+                      group=_LAYOUT["groups"][MODEL]), buf
+
+
+def model_recv(like: torch.Tensor, index: int) -> torch.Tensor:
+    """Receive a tensor of like's shape and dtype from model index `index`
+    of this rank's model group -> on like's device. Blocks until it
+    arrives; the sender's `model_isend` must be issued in the same order."""
+    buf = torch.empty(like.shape, dtype=like.dtype, device=comm_device())
+    dist.recv(buf, _model_peer(index), group=_LAYOUT["groups"][MODEL])
+    return buf.to(like.device)
+
+
+def wait_all(handles) -> None:
+    """Wait for the sends that `model_isend` started."""
+    for work, _ in handles:
+        work.wait()

@@ -27,7 +27,11 @@ layouts (a Linear's weight is (out, in), the transpose of a flax kernel):
 
 As in the JAX package's `_rule_for`, a tensor whose split dimension the
 model axis does not divide stays replicated. Adam's moments follow their
-parameters (the rules key on the names the moments share).
+parameters (the rules key on the names the moments share). Under
+pipeline parallelism (`pp=True`: `--pp_stages` equal to the model axis,
+whose ranks are then the pipeline's stages) the BERT rules are skipped,
+as the JAX package's `skip_bert` skips them: the layer stack stays whole
+on every model rank, and each stage runs its own block of it.
 
 Serving lays out devices, not ranks (`ServingMesh`, `serving_mesh`): the
 JAX package serves a mesh from one controller, a process whose posts are
@@ -125,22 +129,26 @@ _PARAM_RULES: Tuple[Tuple[str, int], ...] = (
 )
 
 
-def _rule_for(mesh: Mesh, name: str, shape: Sequence[int]) -> Optional[int]:
+def _rule_for(mesh: Mesh, name: str, shape: Sequence[int],
+              skip_bert: bool = False) -> Optional[int]:
     """The dim of the full tensor `name` of `shape` that the model axis
-    splits, or None (replicated): no rule, one model rank, or a dim the
-    axis does not divide."""
+    splits, or None (replicated): no rule, one model rank, a dim the axis
+    does not divide, or a BERT tensor under `skip_bert`."""
     for pat, dim in _PARAM_RULES:
+        if skip_bert and pat.startswith(r"bert\."):
+            continue
         if re.search(pat, name):
             split = len(shape) > dim and mesh.part(shape[dim]) is not None
             return dim if split else None
     return None
 
 
-def param_shardings(mesh: Mesh, shapes: Mapping[str, Sequence[int]]
-                    ) -> Dict[str, Optional[int]]:
+def param_shardings(mesh: Mesh, shapes: Mapping[str, Sequence[int]],
+                    pp: bool = False) -> Dict[str, Optional[int]]:
     """{name: split dim or None} for the FULL tensors' shapes (a state
-    dict, or {name: shape})."""
-    return {k: _rule_for(mesh, k, tuple(getattr(v, "shape", v)))
+    dict, or {name: shape}). pp=True keeps BERT replicated (the model axis
+    is the pipeline's stages)."""
+    return {k: _rule_for(mesh, k, tuple(getattr(v, "shape", v)), pp)
             for k, v in shapes.items()}
 
 
@@ -158,12 +166,13 @@ def join(t: torch.Tensor, dim: int) -> torch.Tensor:
                                                              ).contiguous()
 
 
-def shard_state_dict(full: Mapping[str, torch.Tensor], mesh: Mesh
-                     ) -> Dict[str, torch.Tensor]:
+def shard_state_dict(full: Mapping[str, torch.Tensor], mesh: Mesh,
+                     pp: bool = False) -> Dict[str, torch.Tensor]:
     """A full state dict -> this model rank's: each split tensor `cut` to
-    the rank's part of its split dim, the rest as they are."""
+    the rank's part of its split dim, the rest as they are (`pp` as in
+    `param_shardings`)."""
     return {k: full[k] if dim is None else cut(full[k], dim, mesh)
-            for k, dim in param_shardings(mesh, full).items()}
+            for k, dim in param_shardings(mesh, full, pp).items()}
 
 
 def gather_state_dict(local: Mapping[str, torch.Tensor],

@@ -34,6 +34,12 @@ package's `_PARAM_RULES` split (the brand tables' aspects, the mapping
 MFCs' inputs, BERT's FFN), the batch's collectives run over the data
 group, the layers' over the model group; a checkpoint holds the whole
 model, gathered on save and cut on load.
+
+Over the model axis, --seq_shard splits the towers' pooled time axes and
+--pp_stages S pipelines BERT's layers over S stages, which are the model
+ranks (`models/encoders.py`, `parallel/pipeline.py`); without
+--mesh_shape, --pp_stages S lays the world out as (world / S, S), as the
+JAX trainer lays out its devices.
 """
 
 from __future__ import annotations
@@ -236,11 +242,36 @@ class MetricsLog:
                              if isinstance(v, (int, float))})
 
 
+def derive_pp_mesh(cfg: Config, world: int) -> None:
+    """--pp_stages S without --mesh_shape: the stages take the model axis
+    and the rest of the world the data axis, cfg.mesh_shape "world/S,S",
+    with the JAX trainer's errors where S does not divide the world or a
+    microbatch does not divide over the data axis."""
+    if world % cfg.pp_stages:
+        raise ValueError(
+            "--pp_stages %d does not divide the %d available devices; "
+            "pass an explicit --mesh_shape data,%d"
+            % (cfg.pp_stages, world, cfg.pp_stages))
+    cfg.mesh_shape = "%d,%d" % (world // cfg.pp_stages, cfg.pp_stages)
+    print("pipeline parallelism: --pp_stages %d -> mesh_shape %s"
+          % (cfg.pp_stages, cfg.mesh_shape))
+    data_axis = world // cfg.pp_stages
+    if data_axis > 1 and (cfg.batch_size // cfg.pp_stages) % data_axis:
+        raise ValueError(
+            "pipeline microbatch %d (= batch %d / %d stages) is not "
+            "divisible by the derived data mesh axis %d; pass an "
+            "explicit --mesh_shape or adjust --batch_size"
+            % (cfg.batch_size // cfg.pp_stages, cfg.batch_size,
+               cfg.pp_stages, data_axis))
+
+
 def main(argv=None):
     args = build_train_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = distributed.initialize_multihost(args.device)
     print(json.dumps(vars(args), indent=2, default=str))
+    if cfg.pp_stages > 1 and not cfg.mesh_shape:
+        derive_pp_mesh(cfg, collectives.world_size())
     mesh = build_mesh(cfg.mesh_shape)
     # an explicit --mesh_shape's batch is checked by cfg.finalize; the
     # default mesh's data axis is known only here

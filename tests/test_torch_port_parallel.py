@@ -241,8 +241,10 @@ def test_build_mesh_refuses_what_jax_refuses(shape):
 def test_build_mesh_refuses_what_the_port_does_not_run():
     """What the port still refuses: idle ranks (the JAX package takes a
     leading subset of its devices), a mesh of more ranks than the world,
-    malformed shapes, and the flags of later slices, --seq_shard and
-    --pp_stages above 1. A model axis is run: R * M must equal the world."""
+    malformed shapes, and the JAX-only flags --rng_impl and
+    --compilation_cache_dir. A model axis is run: R * M must equal the
+    world. --seq_shard and --pp_stages are accepted, and `finalize` checks
+    --pp_stages against the mesh with the JAX package's messages."""
     for shape in ("4,1", "2,2", "1,4", "3,2"):         # R * M below 8
         with pytest.raises(ValueError, match="idle"):
             mesh.build_mesh(shape, world=8)
@@ -256,10 +258,33 @@ def test_build_mesh_refuses_what_the_port_does_not_run():
         with pytest.raises(ValueError):
             mesh.build_mesh(shape, world=8)
     argv = ARGS + ["--rootpath", "unused"]
-    for flags, item in ((["--seq_shard"], "seq_shard.*item 1"),
-                        (["--pp_stages", "2"], "pp_stages.*item 2")):
-        with pytest.raises(NotImplementedError, match=item):
+    for flags, match in ((["--rng_impl", "rbg"], "--rng_impl"),
+                         (["--compilation_cache_dir", "x"],
+                          "--compilation_cache_dir")):
+        with pytest.raises(NotImplementedError, match=match):
             config_from_args(build_train_parser().parse_args(argv + flags))
+    tf = ["--text_net", "transformers", "--bert_num_layers", "4",
+          "--batch_size", "8"]
+    for flags, match in (
+            (["--seq_shard"], None),
+            (["--pp_stages", "2", "--mesh_shape", "2,2"], None),
+            (["--pp_stages", "3"], "not divisible by --pp_stages"),
+            (["--pp_stages", "2", "--mesh_shape", "2,4"],
+             "must equal the model mesh axis"),
+            (["--pp_stages", "2", "--mesh_shape", "8,2"],
+             "pipeline microbatch")):
+        args = build_train_parser().parse_args(argv + tf + flags)
+        cfg = config_from_args(args)
+        jcfg = jax_config_from_args(jax_parser().parse_args(
+            argv + tf + flags))
+        if match is None:
+            cfg.finalize()
+            continue
+        with pytest.raises(ValueError, match=match) as got:
+            cfg.finalize()
+        with pytest.raises(ValueError) as want:
+            jcfg.finalize()
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="mesh_shape"):
         config_from_args(build_train_parser().parse_args(
             argv + ["--mesh_shape", "2,x"]))

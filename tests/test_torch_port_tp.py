@@ -249,7 +249,9 @@ def test_k2_refuses_a_shard_outside_its_table():
 # overrides, "weights": a full state dict to load, "resume": a checkpoint
 # to load with its optimizer state, "no_brand_dropout", "save": a
 # checkpoint to write}}), each dumped gathered (the full params, grads and
-# buffers) and local (this rank's replicated tensors) to out.<name>.<rank>
+# buffers) and local (this rank's replicated tensors) to out.<name>.<rank>;
+# "steps": 2 runs a second update on the next super-batch and dumps this
+# rank's replicated parameters and their Adam moments after it ("after")
 _TP_STEP = """
 import copy, json, sys
 import torch
@@ -262,9 +264,20 @@ from fancyrec_tpu_torch.parallel.mesh import (
 from fancyrec_tpu_torch.train import checkpoints, trainer
 from fancyrec_tpu_torch.train.state import (
     global_norm, init_state, load_optimizer_state, sharded_params)
+from fancyrec_tpu_torch.models import encoders
 spec = json.loads(sys.argv[1])
 base = config_from_args(build_train_parser().parse_args(spec["argv"]))
 device = distributed.initialize_multihost("cpu")
+# the towers' calls of the sequence split and the pipeline, counted
+calls = dict.fromkeys(("seq_shard_pool", "bert_pipeline_forward"), 0)
+def counted(name):
+    fn = getattr(encoders, name)
+    def call(*a, **k):
+        calls[name] += 1
+        return fn(*a, **k)
+    setattr(encoders, name, call)
+for n in list(calls):
+    counted(n)
 mesh = build_mesh(base.mesh_shape)
 ds = trainer.build_datasets(base)["train"]
 r = collectives.rank()
@@ -292,8 +305,11 @@ for name, v in spec["variants"].items():
         cfg.frame_buckets_list, cfg.transfer_dtype), device,
         trainer._TRAIN_KEYS)
     _, sb = next(stream)
+    sb2 = next(stream)[1] if v.get("steps", 1) > 1 else None
     stream.close()
+    calls.update(dict.fromkeys(calls, 0))
     state, metrics = trainer.train_step(model, opt, cfg, state, sb)
+    first_calls = dict(calls)
     split = model.split_dims()
     params = dict(model.named_parameters())
     grads = {n: p.grad for n, p in params.items()}
@@ -304,15 +320,26 @@ for name, v in spec["variants"].items():
     if "save" in v:
         checkpoints.save_checkpoint(v["save"], cfg, model, opt,
                                     write=distributed.is_primary(), epoch=1)
-    torch.save({"full": model.full_state_dict(), "grads": full_grads,
-                "local": local, "queue": state.queue.queue,
-                "ptr": state.queue.ptr,
-                # the norm of the clipped grads, from the shards and whole
-                "norm_shards": global_norm(list(grads.values()),
-                                           sharded_params(model)),
-                "norm_full": global_norm(list(full_grads.values()))},
-               "%s.%s.%d" % (spec["out"], name, r))
+    dump = {"full": model.full_state_dict(), "grads": full_grads,
+            "local": local, "queue": state.queue.queue,
+            "ptr": state.queue.ptr,
+            # the norm of the clipped grads, from the shards and whole
+            "norm_shards": global_norm(list(grads.values()),
+                                       sharded_params(model)),
+            "norm_full": global_norm(list(full_grads.values()))}
+    dump["after"] = {}
+    if sb2 is not None:
+        dump = copy.deepcopy(dump)
+        trainer.train_step(model, opt, cfg, state, sb2)
+        moments = opt.state_dict()["state"]
+        for i, (n, p) in enumerate(model.named_parameters()):
+            if split[n] is None:
+                dump["after"][n] = p.detach().clone()
+                for k in ("exp_avg", "exp_avg_sq"):
+                    dump["after"][k + "." + n] = moments[i][k].clone()
+    torch.save(dump, "%s.%s.%d" % (spec["out"], name, r))
     res[name] = {"rows": list(sb["frames"].shape[:2]), "step": state.step,
+                 "calls": first_calls,
                  **{k: float(x) for k, x in metrics.items()}}
 print("RESULT " + json.dumps(res))
 """
@@ -334,10 +361,17 @@ def jax_ref(root, tmp_path_factory):
     microbatches of 4 posts, from perturbed weights (as the two-rank
     test computes it), and its raw float32 and bfloat16 grad sums of the
     same microbatches without the clip."""
+    return jax_reference(root, tmp_path_factory)
+
+
+def jax_reference(root, tmp_path_factory, extra=(), bf16=True):
+    """`jax_ref` for `_argv`'s flags followed by `extra`; bf16=False
+    leaves out the bfloat16 grad sum."""
     with open(os.path.join(root, "bert_vocab.txt")) as f:
         tiny_bert = dict(bert_vocab_size=len(f.read().split()),
                          bert_intermediate_size=32, bert_max_position=32)
     argv, _ = _argv(root, tiny_bert)
+    argv = argv + list(extra)
     jcfg = jax_config_from_args(jax_parser().parse_args(argv))
     jds = jtrainer.build_datasets(jcfg)["train"]
     for k, v in tiny_bert.items():
@@ -388,14 +422,16 @@ def jax_ref(root, tmp_path_factory):
     updates, _ = jax.jit(tx.update)(gsum, tx.init(params), params)
     bf_cfg = copy.deepcopy(jcfg)
     bf_cfg.dtype = "bfloat16"
-    bf16_gsum = grad_sum(jax_init_state(bf_cfg, seed=5)[0])[0]
+    bf16_gsum = (grad_sum(jax_init_state(bf_cfg, seed=5)[0])[0] if bf16
+                 else gsum)
     weights = str(tmp_path_factory.mktemp("tp_weights") / "w.pt")
     torch.save(torch_state_from_jax(params, stats), weights)
     clipped = optax.clip_by_global_norm(jcfg.grad_clip).update(gsum, None)[0]
     flat = lambda t: torch.cat([v.reshape(-1) for _, v in  # noqa: E731
                                 sorted(torch_state_from_jax(jax.tree.map(
                                     np.array, t)).items())])
-    return {"tiny_bert": tiny_bert, "jcfg": jcfg, "params": params,
+    return {"tiny_bert": tiny_bert, "extra": list(extra), "jcfg": jcfg,
+            "params": params,
             "stats": stats, "weights": weights, "losses": losses,
             "norm": float(optax.global_norm(gsum)), "bs": bs, "q": q,
             "params_after": torch_state_from_jax(jax.tree.map(
@@ -406,7 +442,7 @@ def jax_ref(root, tmp_path_factory):
 
 def _run_steps(root, jax_ref, out, mesh_shape, ranks, variants, extra=()):
     argv, tiny_bert = _argv(root, jax_ref["tiny_bert"])
-    spec = {"argv": argv + list(extra) + (
+    spec = {"argv": argv + jax_ref.get("extra", []) + list(extra) + (
         ["--mesh_shape", mesh_shape] if mesh_shape else []),
         "set": tiny_bert, "variants": variants, "out": out}
     got = results(run_world(_TP_STEP, [json.dumps(spec)], ranks=ranks))
@@ -443,12 +479,12 @@ def world_1x2(root, jax_ref, tmp_path_factory):
             "ckpt": str(tmp / "tp.pth.tar"), "frtpu1": frtpu1}
 
 
-def _check_against_jax(jax_ref, got, dumps, rows):
-    """One dropout-off update against the JAX package's unsharded one, at
-    the two-rank test's tolerances, and the replicated tensors of the model
-    ranks of each data slot equal bit for bit."""
+def _check_against_jax(jax_ref, got, dumps, rows, name="off"):
+    """One dropout-off update (variant `name`) against the JAX package's
+    unsharded one, at the two-rank test's tolerances, and the replicated
+    tensors of the model ranks of each data slot equal bit for bit."""
     for r in got:
-        m = r["off"]
+        m = r[name]
         assert m["step"] == 2 and m["rows"] == rows
         assert m["loss"] == pytest.approx(np.mean(jax_ref["losses"]),
                                           rel=LOSS_REL)

@@ -117,8 +117,9 @@ def test_auto_resume_restores_the_optimizer_moments(root, monkeypatch):
     (["--mesh_shape", "2"], ValueError, "needs 2 ranks, have 1"),
     # so does a model axis of 2 (tensor parallelism: a rank a model index)
     (["--mesh_shape", "1,2"], ValueError, "needs 2 ranks, have 1"),
-    (["--pp_stages", "2"], NotImplementedError, "--pp_stages"),
-    (["--seq_shard"], NotImplementedError, "--seq_shard"),
+    # --pp_stages 2 takes a model axis of 2 stages: a world of one cannot
+    # host it (the JAX trainer's error on one device)
+    (["--pp_stages", "2"], ValueError, "does not divide"),
     (["--rng_impl", "rbg"], NotImplementedError, "--rng_impl"),
     (["--compilation_cache_dir", "/nonexistent"], NotImplementedError,
      "--compilation_cache_dir"),
@@ -129,6 +130,17 @@ def test_not_ported_flags_are_refused(root, flag, error, match):
         trainer.main(TINY + ["--rootpath", root, "--postfix", "refused"]
                      + flag)
     assert not os.path.exists(logdir)      # refused before any write
+
+
+def test_seq_shard_in_a_world_of_one_trains_as_without(root):
+    """--seq_shard with one model rank leaves the time axes whole (the JAX
+    package's constraint does nothing where the mesh axis is 1): the run
+    equals the one without the flag."""
+    args = TINY + ["--rootpath", root, "--text_net", "transformers",
+                   "--num_epochs", "1", "--dropout", "0"]
+    best = trainer.main(args + ["--postfix", "seq1", "--seq_shard"])
+    plain = trainer.main(args + ["--postfix", "seq_none"])
+    assert best == plain
 
 
 def test_mesh_of_one_trains_as_no_mesh(root):
