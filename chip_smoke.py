@@ -81,12 +81,18 @@ Phases:
      the extractor's, frameinfo and format_check pass); (d) where cv2
      imports, the JAX package's bench_preprocess videos decoded on threads
      into `extract_features`;
-  10. data parallelism (--mesh_shape R,1), on phase 5's tree: (a) the
+  The rank worlds of phases 10c-e, 11b, 11d and 13a-c train and test on a
+  second, smaller tree of the same width (2048-d features, 64 frames, 51
+  brands; 2 videos and 2 images a brand in each split: 204 posts, 3
+  updates an epoch at 8 x 8, 2 at 13b's 12 x 8): their checks read the
+  first one or two updates and a checkpoint. Phases 5-7 and 10a keep phase
+  5's 816-post tree.
+  10. data parallelism (--mesh_shape R,1): (a) on phase 5's tree, the
      trainer's BigFile readers gather natively (g++ is on the card's host;
      the phase fails otherwise), and the host side of one recipe epoch
      timed with the native gather and the memmap; (b) K1-fwd, K1-bwd and K2
      at a rank's batch (B=4, full width) and K4 at a rank's post shard
-     against their plain versions; (c) the trainer CLI for one recipe epoch
+     (51 x 102) against their plain versions; (c) the trainer CLI for one recipe epoch
      outside a world and in a world of one over NCCL, each in a process of
      its own: the first update and the checkpoint equal bit for bit; (d)
      the same recipe over two ranks sharing the card (gloo): the first
@@ -96,7 +102,7 @@ Phases:
      its eight metrics equal the one-process tester's. The phase's trainer
      runs have every dropout off and deterministic algorithms on; each
      rank prints its ms per update, device peak and launches.
-  11. tensor parallelism (--mesh_shape R,M), on phase 5's tree: (a) K2 on
+  11. tensor parallelism (--mesh_shape R,M), on the small tree: (a) K2 on
      aspect shards of the 2000-aspect table at M = 2 and 4, B = 8 and 4:
      each shard's C entries against their plain versions (times and bounds
      at the shard's A), every shard's keep bits equal to the one-table
@@ -107,7 +113,10 @@ Phases:
      one-process update, and each rank launches K1-fwd, K1-bwd, K2 on its
      1000 aspects and K4; then one update with every dropout on at (1, 2)
      against one process from the same seed; (c) one update at
-     --mesh_shape 2,2 (four ranks) against 10c's; (d) the tester CLI at
+     --mesh_shape 2,2 (four ranks) against one process's update of the
+     same batch, on phase 5's tree (the small tree's first batch holds a
+     two-ulp near-tie in the text conv bank's max-pool, which the (2, 2)
+     sum order flips); (d) the tester CLI at
      (1, 2) on b's checkpoint: its metrics equal the one-process tester's.
   12. sharded serving, on phase 4's index (1,000,001 int8 rows of 1024
      after 4b's append): (a) `distributed_retrieval_topk` over 2 and 4
@@ -124,10 +133,18 @@ Phases:
      unsharded sidecar's answers, a query's ms; (d) `index build` over two
      ranks sharing the card (gloo, --mesh_shape 2,1) on phase 4's
      collection: phase 4's cap ids in its order, the rows within
-     RANK_BUILD_TOL of its rows, K1 launched on each rank.
+     RANK_BUILD_TOL of its rows, K1 launched on each rank; (e, run after
+     a, before b's append) `index query --quantize int8 --mesh_shape 2,1`
+     for the 51 brands over two ranks sharing the card (gloo), each
+     holding its 500,001 rows and launching K3 once: every rank's answer
+     bit-equal to a's one K3 call (and so to a's S=2 answer), only the
+     primary printing; then, on the sidecar built again, --nprobe 8 over
+     the same ranks equal to the unsharded sidecar's answer; each rank's
+     K3 ms beside its bytes bound and its gather's ms.
   13. sequence parallelism and the BERT pipeline over the model axis, on
-     phase 5's tree (ranks sharing the card, gloo, dropouts off): K1-fwd,
-     K1-bwd and K2 at (b)'s batch of 12 against their plain versions; (a)
+     the small tree (ranks sharing the card, gloo, dropouts off): K1-fwd,
+     K1-bwd and K2 at (b)'s batch of 12, K1-fwd at (c)'s of 96 and K4 at
+     (c)'s 51 x 204 against their plain versions; (a)
      the trainer CLI for one recipe epoch at --mesh_shape 1,2 --seq_shard:
      its first update within phase 5's tolerances of 10c's; (b) the trainer
      CLI for one epoch at --mesh_shape 1,3 --pp_stages 3 --batch_size 12
@@ -137,12 +154,23 @@ Phases:
      the tester at (1, 3) on (b)'s checkpoint: its metrics equal the
      one-process tester's. Each rank prints its ms per update, device
      peak and launches.
+  14. (a) the flagship forward, `fancyrec_tpu_torch.entry.entry()` (the
+     full-width model in eval mode on the example batch of 8), on the card
+     against the same forward on the CPU within ENC_TOL, K1-fwd launched;
+     (b) the multi-rank dry run, `entry.dryrun_multichip(4)`: four ranks
+     sharing the card (gloo) at (2, 2), one update of the tiny config with
+     --seq_shard and its dropouts on, the sharded metrics against the
+     gathered ones, the top-k over the data slots, the BERT pipeline
+     against the sequential encoder (pp_delta < 1e-4); each rank launches
+     K1-fwd, K1-bwd, K2 and K4, held first against their plain versions at
+     the dry run's tiny shapes.
 The kernels' launch counts are zeroed just before each of the nine paths
 (4, 4b, 4d, 5c, 6, 7's trainer, 7's tester, 12b and 12d) and read just
 after: each kernel must have run on its path (K1-fwd on 4, 4d and 12d's
-ranks, K3 on 4, 4b and 12b).
-Phase 10's, 11's and 13's ranks zero and read their own counts around
-their CLI's main (or their one update); the records of phase 10 (K1, K2 at B=4,
+ranks, K3 on 4, 4b and 12b), and around 14a (K1-fwd).
+Phase 10's, 11's, 12e's, 13's and 14b's ranks zero and read their own
+counts around their CLI's main (or their one update, or the dry run's
+body); the records of phase 10 (K1, K2 at B=4,
 K4 at a shard) count the launches summed over the ranks of 10d (training)
 and 10e (evaluation), those of K2 on aspect shards over 11b's ranks (B=8,
 the trainer at (1, 2)) and 11c's (B=4, the update at (2, 2)). K2 at M=4
@@ -196,6 +224,10 @@ FAST_FLAGS = ["--batch_size", str(B_FAST), "--accumulation_step", "1",
 # the training fixture: 8 videos of 64 frames and 8 images per brand in
 # each of train, val and test (816 posts each: 12 updates an epoch)
 TRAIN_VIDEOS_PER_BRAND, TRAIN_IMGS_PER_BRAND = 8, 8
+# the smaller tree of the rank worlds of phases 10c-e, 11b-d and 13a-c, at
+# the same width: 2 videos and 2 images per brand in each split (204 posts:
+# 3 updates an epoch at 8 x 8, 2 at 13b's 12 x 8, 26 validation batches)
+SMALL_VIDEOS_PER_BRAND, SMALL_IMGS_PER_BRAND = 2, 2
 # card vs CPU train step: grads per tensor relative to the tensor's largest
 # (floored at 1e-4 of the model's largest), float32 through BERT, the GRU
 # and the conv banks in other sum orders.
@@ -210,6 +242,7 @@ K3_QTOL = 1e-6    # relative: the brand scale is rsqrtf of the same exact sum
 K4_TOL = 2e-5     # float32 sums over D=1024 in another order; the JAX
                   # package's tolerance for its kernel (test_similarity_ops)
 N_EVAL = N_BRANDS * (TRAIN_VIDEOS_PER_BRAND + TRAIN_IMGS_PER_BRAND)  # test
+N_SMALL = N_BRANDS * (SMALL_VIDEOS_PER_BRAND + SMALL_IMGS_PER_BRAND)
 ENC_TOL = dict(atol=1e-4, rtol=1e-3)   # card vs CPU, float32, no TF32
 # preprocessing: the ResNet-152 extractor at 224 x 224 and the JAX
 # package's batch of 128; a stream of 32 such batches
@@ -225,8 +258,14 @@ N_DECODE_VIDEOS, DECODE_FRAMES, DECODE_SIZE, DECODE_WORKERS = 8, 450, (
     640, 360), 4
 
 
+# the rank processes running (`start_jobs`), which a failure kills
+_LIVE = []
+
+
 def fail(msg):
     print("chip_smoke: FAIL: %s" % msg, file=sys.stderr, flush=True)
+    for p in _LIVE:
+        p.kill()
     sys.exit(1)
 
 
@@ -754,8 +793,10 @@ def check_gru_train(dev):
             "library_ms": library_ms}, fwd
 
 
-def k1_records(dev, b, dtype, backward, seed):
-    """K1 at T=64, H=1024 and batch b in `dtype` against its plain version
+def k1_records(dev, b, dtype, backward, seed, t=T, h=H, d_in=D_IN,
+               sfx=None):
+    """K1 at T=64, H=1024 (or t, h; d_in cuDNN's input width) and batch b in
+    `dtype` against its plain version
     (float32 at K1_TOL / K1B_TOL; bfloat16 within check_edges' bf16
     tolerances, since h is stored in bfloat16 and a float32 sum-order
     difference that crosses a rounding boundary moves h by one bf16 ulp),
@@ -775,16 +816,18 @@ def k1_records(dev, b, dtype, backward, seed):
     peak = BF16_FLOPS if bf16 else F32_FLOPS
     tol, tol_b = (K1_BF16_TOL, K1B_BF16_TOL) if bf16 else (K1_TOL, K1B_TOL)
     tag = "%s B=%d" % ("bf16" if bf16 else "f32", b)
-    sfx = ("_bf16" if bf16 else "") + "_b%d" % b
+    if (t, h) != (T, H):
+        tag += " T=%d H=%d" % (t, h)
+    sfx = sfx or ("_bf16" if bf16 else "") + "_b%d" % b
     g = torch.Generator(device=dev).manual_seed(seed)
-    xw, w_hh, b_hh = _gru_inputs(g, dev, T, b, H)
+    xw, w_hh, b_hh = _gru_inputs(g, dev, t, b, h)
     xw = xw.to(dtype)
-    rnn = torch.nn.GRU(D_IN, H, bidirectional=True).to(dev, dtype)
+    rnn = torch.nn.GRU(d_in, h, bidirectional=True).to(dev, dtype)
     with torch.no_grad():
         for d, sfx_ in ((0, "l0"), (1, "l0_reverse")):
             getattr(rnn, "weight_hh_" + sfx_).copy_(w_hh[d])
             getattr(rnn, "bias_hh_" + sfx_).copy_(b_hh[d])
-    x = torch.randn(T, b, D_IN, generator=g, device=dev).to(dtype)
+    x = torch.randn(t, b, d_in, generator=g, device=dev).to(dtype)
     with torch.no_grad():
         out = gru_scan_cuda(xw, w_hh, b_hh)
         err = (out.float() - gru_scan_ref(xw, w_hh, b_hh).float()
@@ -802,7 +845,7 @@ def k1_records(dev, b, dtype, backward, seed):
                "library_ms": cuda_ms(lambda: rnn(x), 20),
                **roofline(size * (xw.numel() + out.numel())
                           + 4 * (w_hh.numel() + b_hh.numel()),
-                          2 * (T - 1) * 2 * b * 3 * H * H, peak)}
+                          2 * (t - 1) * 2 * b * 3 * h * h, peak)}
     log("gru_scan %s: kernel %.3f ms, plain %.3f ms, cuDNN GRU forward %.3f "
         "ms, bound %.4f ms (%s)" % (tag, fwd["ms"], fwd["plain_ms"],
                                     fwd["library_ms"], fwd["bound_ms"],
@@ -840,7 +883,7 @@ def k1_records(dev, b, dtype, backward, seed):
            "replaces": "fancyrec_tpu/ops/gru_scan.py:211",
            "max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
-           **roofline(nbytes, 2 * 2 * (T - 1) * 2 * b * 3 * H * H, peak)}
+           **roofline(nbytes, 2 * 2 * (t - 1) * 2 * b * 3 * h * h, peak)}
     log("gru_scan_bwd %s: kernel %.3f ms (median of 3 windows of 10), plain "
         "%.3f ms, cuDNN GRU backward %.3f ms, bound %.4f ms (%s)"
         % (tag, ms, plain_ms, library_ms, bwd["bound_ms"], bwd["bound_by"]))
@@ -958,7 +1001,8 @@ def sweep_gru_rows(dev):
             "picked %.3f ms" % (b, K1_TOL, ", ".join(cells), picked))
 
 
-def check_aspect_dropout(dev, b=B_TRAIN, sass=None, model_axis=1):
+def check_aspect_dropout(dev, b=B_TRAIN, sass=None, model_axis=1,
+                         a_total=N_ASPECTS, c=DIM, sfx=None):
     """K2 at a training shape (B=8, bin/instance.sh's microbatch, or B=64,
     the throughput mode's; A=2000, C=1024, keep 0.5): the keep bits the
     forward writes equal the packed plain Philox mask bit for bit; the
@@ -969,13 +1013,13 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None, model_axis=1):
     its per-block step (`k2_sass_ops`, passed in where it was counted
     already), the backward's from its bytes. model_axis M > 1: the same
     on the last of M aspect shards (A/M aspects of the table's 2000, whose
-    counters are the table's largest), the bounds at the shard's A.
-    -> (the two records, sass)."""
+    counters are the table's largest), the bounds at the shard's A. a_total
+    and c: another table (the dry run's 32 x 64); sfx: the records' name
+    suffix. -> (the two records, sass)."""
     import torch
     from fancyrec_tpu_torch.ops import brand_dropout as bd
     from fancyrec_tpu_torch.ops import _build
 
-    a_total, c = N_ASPECTS, DIM
     a = a_total // model_axis
     a_off = a_total - a
     shard = dict(a_total=a_total, a_off=a_off)
@@ -1095,10 +1139,10 @@ def check_aspect_dropout(dev, b=B_TRAIN, sass=None, model_axis=1):
               "source": "fancyrec_tpu_torch/csrc/aspect_dropout.cu",
               "library_ms": None,
               "path": "training" if b == B_TRAIN else "fast training"}
-    sfx = "" if b == B_TRAIN else "_b%d" % b
     if model_axis > 1:
-        sfx = "_tp%d_b%d" % (model_axis, b)
         common.update(shape=[b, a, c], a_total=a_total, a_off=a_off)
+    sfx = sfx or ("_tp%d_b%d" % (model_axis, b) if model_axis > 1
+                  else "" if b == B_TRAIN else "_b%d" % b)
     # `ms` is the wrapper call, as for every kernel; beside it the C entry
     # alone on buffers made once and the device time of its kernels
     return [
@@ -1542,17 +1586,8 @@ def check_int8_routing(dev):
 
 def _wrappers():
     """{kernel name: its wrapper, whose `launches` counts its launches}."""
-    from fancyrec_tpu_torch.ops.brand_dropout import (
-        aspect_dropout_bwd_cuda, aspect_dropout_fwd_cuda)
-    from fancyrec_tpu_torch.ops.gru_scan import (
-        gru_scan_bwd_cuda, gru_scan_cuda)
-    from fancyrec_tpu_torch.ops.similarity import (
-        cosine_scores_cuda, topk_int8_cuda)
-    return {"gru_scan": gru_scan_cuda, "topk_int8": topk_int8_cuda,
-            "gru_scan_bwd": gru_scan_bwd_cuda,
-            "aspect_dropout_fwd": aspect_dropout_fwd_cuda,
-            "aspect_dropout_bwd": aspect_dropout_bwd_cuda,
-            "cosine_scores": cosine_scores_cuda}
+    from fancyrec_tpu_torch.ops import kernel_wrappers
+    return kernel_wrappers()
 
 
 def zero_counts():
@@ -3158,44 +3193,50 @@ DP_RANKS = 2                  # ranks of the data-parallel world on one card
 B_RANK = B_TRAIN // DP_RANKS  # each rank's rows of a recipe microbatch
 DP_TIMEOUT = 420              # seconds a world of ranks may take
 
-# One rank of a phase-10, 11 or 12 run, started as `python -c _RANK_MAIN
-# HERE mode out argv`: the trainer (mode "train"), the tester ("test") or
-# the index ("build", phase 12d) CLI through its main, or one update
-# through the library ("step": the
-# trainer's loader, init_state and train_step; "step_drop": the same with
-# the brand dropout on). Instruments, none of them in the program:
+# One rank of a phase-10, 11, 12 or 13 world, started as `python -c
+# _RANK_MAIN HERE jobs`, jobs a JSON list of [mode, out, argv] that the
+# process runs in turn (a world stays joined across them, so that a world's
+# start-up, mostly importing torch, is paid once): the trainer (mode
+# "train"), the tester ("test") or the index ("build", phase 12d; "query",
+# phase 12e, argv a list of the query CLI's argvs) CLI through its main, or
+# one update through the library ("step": the trainer's loader, init_state
+# and train_step; "step_drop": the same with the brand dropout on).
+# Instruments, none of them in the program:
 # deterministic algorithms (so that two runs of the same update can agree
 # bit for bit), the brand dropout off but in "step_drop" (the tower
 # dropouts are off by flag where wanted: each data slot draws its own
 # masks, so only dropout-free updates can match across data axes), the
 # first update written to `out`.first.pt by rank 0 (whole: a model rank's
 # shards gathered over its model group), and a RANK_RESULT line with this
-# rank's kernel launches, engine, times and device peak; the tester's
+# rank's kernel launches, engine, times and device peak, a job (each job
+# zeroes the counts and the peak first); the tester's
 # encoded posts and brands written to `out`.enc.<rank>.npz. Under
 # --pp_stages, after the second update: a digest of this rank's BERT
 # parameters and their Adam moments ("bert_digest"), which every model
 # rank must share.
 _RANK_MAIN = r"""
-import hashlib, json, os, sys, time
-here, mode, out, argv = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(
-    sys.argv[4])
+import contextlib, hashlib, io, json, os, sys, time
+here, jobs = sys.argv[1], json.loads(sys.argv[2])
 sys.path.insert(0, here)
 import numpy as np
 import torch
 torch.use_deterministic_algorithms(True, warn_only=True)
 import chip_smoke
 from fancyrec_tpu_torch.models import brand, encoders
+from fancyrec_tpu_torch.ops.similarity import topk_int8_cuda
 from fancyrec_tpu_torch.parallel import collectives
 from fancyrec_tpu_torch.parallel.mesh import gather_state_dict
 from fancyrec_tpu_torch.eval import tester
+from fancyrec_tpu_torch.serving import index
 from fancyrec_tpu_torch.train import trainer
+job = {}
 _init = brand.BrandAspects.__init__
 def _no_brand_dropout(self, *a, **k):
     _init(self, *a, **k)
-    self.p = 0.0
-if mode != "step_drop":
-    brand.BrandAspects.__init__ = _no_brand_dropout
-seen = {"dump_s": 0.0, "updates": 0}
+    if job["mode"] != "step_drop":
+        self.p = 0.0
+brand.BrandAspects.__init__ = _no_brand_dropout
+seen = {}
 _step, _epoch, _datasets = (trainer.train_step, trainer.train_epoch,
                             trainer.build_datasets)
 def bert_digest(model, opt):
@@ -3229,7 +3270,7 @@ def first_update(model, opt, cfg, state, sb):
                 "grads": {n: grads[n].cpu() for n in names},
                 "buffers": {n: full[n].cpu()
                             for n, _ in model.named_buffers()},
-                "queue": state.queue.queue.cpu()}, out + ".first.pt")
+                "queue": state.queue.queue.cpu()}, job["out"] + ".first.pt")
         seen["dump_s"] = time.time() - t0
     return state, metrics
 def epoch(*a, **k):
@@ -3245,93 +3286,155 @@ trainer.train_step, trainer.train_epoch = first_update, epoch
 trainer.build_datasets = datasets
 # the towers' calls of the time split and the pipeline: [in training (grad
 # mode), in evaluation]
-split_calls = {n: [0, 0] for n in ("seq_shard_pool", "bert_pipeline_forward")}
+split_calls = {}
 def counted(name):
     fn = getattr(encoders, name)
     def call(*a, **k):
         split_calls[name][0 if torch.is_grad_enabled() else 1] += 1
         return fn(*a, **k)
     setattr(encoders, name, call)
-for n in split_calls:
+for n in ("seq_shard_pool", "bert_pipeline_forward"):
     counted(n)
-chip_smoke.zero_counts()
-t0 = time.time()
 _ranking = tester.test_post_ranking
 def ranking(model, brand_num, post_embs, brands, device):
     # what the sharded encode left on this rank: every post's embedding
-    np.savez("%s.enc.%d.npz" % (out, collectives.rank()),
+    np.savez("%s.enc.%d.npz" % (job["out"], collectives.rank()),
              post_embs=post_embs, brands=brands)
     return _ranking(model, brand_num, post_embs, brands, device)
-if mode == "train":
-    got = trainer.main(argv)
-elif mode == "build":
-    from fancyrec_tpu_torch.serving import index
-    index.main(argv)
-    got = {}
-elif mode.startswith("step"):
-    from fancyrec_tpu_torch.config import build_train_parser, config_from_args
-    from fancyrec_tpu_torch.data.loader import BatchLoader, prefetch_to_device
-    from fancyrec_tpu_torch.parallel import distributed
-    from fancyrec_tpu_torch.parallel.mesh import (
-        build_mesh, process_batch_shard)
-    from fancyrec_tpu_torch.train.state import init_state
-    args = build_train_parser().parse_args(argv)
-    cfg = config_from_args(args)
-    device = distributed.initialize_multihost(args.device)
-    mesh = build_mesh(cfg.mesh_shape)
-    ds = trainer.build_datasets(cfg)["train"]
-    cfg.finalize()
-    # the trainer's train loader, model and first super-batch
-    loader = BatchLoader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                         final_batch="drop",
-                         grouped="window" if cfg.length_grouped else "off",
-                         process_shard=process_batch_shard(mesh,
-                                                           cfg.batch_size))
-    model, opt, state = init_state(cfg, device, mesh=mesh)
-    stream = prefetch_to_device(trainer._superbatches(
-        loader, cfg.accumulation_step, cfg.token_buckets_list,
-        cfg.frame_buckets_list, cfg.transfer_dtype), device,
-        trainer._TRAIN_KEYS, size=2)
-    _, sb = next(stream)
-    stream.close()
-    t1 = time.time()
-    first_update(model, opt, cfg, state, sb)
+tester.test_post_ranking = ranking
+held, _query = [], index.PostIndex.query
+def query(self, *a, **k):
+    vals, names = _query(self, *a, **k)
+    held.append((self, vals, names))
+    return vals, names
+index.PostIndex.query = query
+for n_job, (mode, out, argv) in enumerate(jobs):
+    job.update(mode=mode, out=out)
+    seen.clear()
+    seen.update(dump_s=0.0, updates=0)
+    split_calls.update({n: [0, 0] for n in ("seq_shard_pool",
+                                            "bert_pipeline_forward")})
+    chip_smoke.zero_counts()
     if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if mode == "train":
+        got = trainer.main(argv)
+    elif mode == "build":
+        index.main(argv)
+        got = {}
+    elif mode == "query":
+        # `index query` over the world, once an argv of the list, each
+        # run's answer (values saved, names kept), printed lines and K3
+        # launches recorded; then K3 on this rank's shard timed (CUDA
+        # events) and the two all-gathers of its candidates over the data
+        # group (host clock)
+        got = {"runs": []}
+        del held[:]
+        for i, one in enumerate(argv):
+            buf, before = io.StringIO(), chip_smoke.read_counts()["topk_int8"]
+            with contextlib.redirect_stdout(buf):
+                index.main(one)
+            idx, vals, names = held[-1]
+            np.save("%s.%d.%d.npy" % (out, i, collectives.rank()), vals)
+            got["runs"].append({
+                "names": names, "lines": len(buf.getvalue().splitlines()),
+                "k3": chip_smoke.read_counts()["topk_int8"] - before,
+                "rows": (None if idx._posts is None
+                         else int(idx._posts.shape[0])),
+                "lists": (None if idx._ivf is None
+                          else int(idx._ivf.packed_idx.shape[0]))})
+        idx, vals = held[0][0], held[0][1]
+        q = torch.from_numpy(idx.brand_embs).to(idx.device)
+        slot, size = collectives.data_rank(), idx.shard_size
+        local = min(max(idx.n_posts - slot * size, 0), size)
+        b, k, d = q.shape[0], vals.shape[1], q.shape[1]
+        posts, inv = idx.posts(), idx._posts_inv
+        k3 = lambda: topk_int8_cuda(q, posts, inv, k, local)
+        got.update(local_rows=local, k3_ms=chip_smoke.uncounted(
+            lambda: chip_smoke.cuda_ms(k3, 20)), **chip_smoke.roofline(
+                4 * q.numel() + local * d + 4 * local + 8 * b * k,
+                2 * b * local * d, chip_smoke.INT8_OPS))
+        v, i = chip_smoke.uncounted(k3)
+        gather = lambda: (collectives.all_gather(v[None]),
+                          collectives.all_gather(i[None]))
+        gather()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            gather()
         torch.cuda.synchronize()
-    got = {"update_s": time.time() - t1 - seen["dump_s"],
-           "mesh": [mesh.data, mesh.model]}
-else:
-    tester.test_post_ranking = ranking
-    got = tester.main(argv)._asdict()
-    # the exact sharded metrics on the card over a score matrix with ties
-    # and pad posts, each rank its contiguous shard of the columns
-    from fancyrec_tpu_torch.eval.metrics import ranking_metrics_sharded
-    scores, labels = chip_smoke.tie_scores()
-    # the data slots split the columns; a slot's model ranks share its block
-    n_l = scores.shape[1] // collectives.data_size()
-    cols = slice(collectives.data_rank() * n_l,
-                 (collectives.data_rank() + 1) * n_l)
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if torch.cuda.is_available() else torch.device("cpu"))
-    seen["sharded"] = ranking_metrics_sharded(
-        torch.from_numpy(scores[:, cols]).to(dev), labels[cols],
-        scores.shape[0])._asdict()
-wall = time.time() - t0
-stats = seen.pop("stats", None)
-res = {"rank": collectives.rank(), "world": collectives.world_size(),
-       "backend": (torch.distributed.get_backend()
-                   if torch.distributed.is_initialized() else None),
-       "device": (str(torch.cuda.current_device())
-                  if torch.cuda.is_available() else "cpu"), "result": got,
-       "wall_s": wall, "counts": chip_smoke.read_counts(),
-       "split_calls": split_calls,
-       "peak_bytes": (torch.cuda.max_memory_allocated()
-                      if torch.cuda.is_available() else 0), **seen}
-if stats:
-    res.update(updates=len(stats["losses"]), train_s=stats["seconds"],
-               ms_per_update=1e3 * (stats["seconds"] - seen["dump_s"])
-               / max(len(stats["losses"]), 1))
-print("RANK_RESULT " + json.dumps(res), flush=True)
+        got["gather_ms"] = (time.perf_counter() - t1) * 1e3 / 20
+        del held[:], idx, posts, inv, q
+    elif mode.startswith("step"):
+        from fancyrec_tpu_torch.config import (
+            build_train_parser, config_from_args)
+        from fancyrec_tpu_torch.data.loader import (
+            BatchLoader, prefetch_to_device)
+        from fancyrec_tpu_torch.parallel import distributed
+        from fancyrec_tpu_torch.parallel.mesh import (
+            build_mesh, process_batch_shard)
+        from fancyrec_tpu_torch.train.state import init_state
+        args = build_train_parser().parse_args(argv)
+        cfg = config_from_args(args)
+        device = distributed.initialize_multihost(args.device)
+        mesh = build_mesh(cfg.mesh_shape)
+        ds = trainer.build_datasets(cfg)["train"]
+        cfg.finalize()
+        # the trainer's train loader, model and first super-batch
+        loader = BatchLoader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                             final_batch="drop",
+                             grouped="window" if cfg.length_grouped else "off",
+                             process_shard=process_batch_shard(
+                                 mesh, cfg.batch_size))
+        model, opt, state = init_state(cfg, device, mesh=mesh)
+        stream = prefetch_to_device(trainer._superbatches(
+            loader, cfg.accumulation_step, cfg.token_buckets_list,
+            cfg.frame_buckets_list, cfg.transfer_dtype), device,
+            trainer._TRAIN_KEYS, size=2)
+        _, sb = next(stream)
+        stream.close()
+        t1 = time.time()
+        first_update(model, opt, cfg, state, sb)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        got = {"update_s": time.time() - t1 - seen["dump_s"],
+               "mesh": [mesh.data, mesh.model]}
+        del model, opt, state, sb, loader, ds
+    else:
+        got = tester.main(argv)._asdict()
+        # the exact sharded metrics on the card over a score matrix with
+        # ties and pad posts, each rank its contiguous shard of the columns
+        from fancyrec_tpu_torch.eval.metrics import ranking_metrics_sharded
+        scores, labels = chip_smoke.tie_scores()
+        # the data slots split the columns; a slot's model ranks share its
+        # block
+        n_l = scores.shape[1] // collectives.data_size()
+        cols = slice(collectives.data_rank() * n_l,
+                     (collectives.data_rank() + 1) * n_l)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if torch.cuda.is_available() else torch.device("cpu"))
+        seen["sharded"] = ranking_metrics_sharded(
+            torch.from_numpy(scores[:, cols]).to(dev), labels[cols],
+            scores.shape[0])._asdict()
+    wall = time.time() - t0
+    stats = seen.pop("stats", None)
+    res = {"job": n_job, "rank": collectives.rank(),
+           "world": collectives.world_size(),
+           "backend": (torch.distributed.get_backend()
+                       if torch.distributed.is_initialized() else None),
+           "device": (str(torch.cuda.current_device())
+                      if torch.cuda.is_available() else "cpu"),
+           "result": got, "wall_s": wall, "counts": chip_smoke.read_counts(),
+           "split_calls": split_calls,
+           "peak_bytes": (torch.cuda.max_memory_allocated()
+                          if torch.cuda.is_available() else 0), **seen}
+    if stats:
+        res.update(updates=len(stats["losses"]), train_s=stats["seconds"],
+                   ms_per_update=1e3 * (stats["seconds"] - seen["dump_s"])
+                   / max(len(stats["losses"]), 1))
+    print("RANK_RESULT " + json.dumps(res), flush=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 """
 
 
@@ -3355,12 +3458,20 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(mode, out, argv, ranks):
-    """`ranks` processes of _RANK_MAIN on this card -> their RANK_RESULT
-    records by rank. ranks=0: one process outside any world (no
+def run_jobs(jobs, ranks):
+    """`ranks` processes of _RANK_MAIN on this card, each running `jobs`
+    ([(mode, out, argv)]) in turn -> for each job its RANK_RESULT records
+    by rank (`start_jobs`, then `finish_jobs`)."""
+    return finish_jobs(start_jobs(jobs, ranks))
+
+
+def start_jobs(jobs, ranks, of=0):
+    """Start `ranks` processes of _RANK_MAIN running `jobs` in turn, and
+    return without waiting: another world may run beside it (their times
+    then show results, not speed), `of` the processes on the host then, among
+    which its cores are split. ranks=0: one process outside any world (no
     WORLD_SIZE); else a world of `ranks` (MASTER_ADDR localhost, a free
-    port). Every process is killed and the phase fails if one exits
-    non-zero or the world outlives DP_TIMEOUT."""
+    port). -> a handle for `finish_jobs`."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                         "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
@@ -3368,19 +3479,30 @@ def run_ranks(mode, out, argv, ranks):
     if ranks:
         env.update(WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
                    MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
-    if ranks > 1:
-        # the host's cores split between the ranks, as torchrun does: host
-        # threads that spin while another rank holds the cores slow the
-        # collectives down
-        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // ranks))
-    procs = []
+    of = max(of, ranks)
+    if of > 1:
+        # the host's cores split between the processes, as torchrun splits
+        # them between its ranks: host threads that spin while another
+        # process holds the cores slow the collectives down
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // of))
+    procs, t0 = [], time.time()
     for r in range(max(ranks, 1)):
         renv = dict(env, RANK=str(r), LOCAL_RANK=str(r)) if ranks else env
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _RANK_MAIN, HERE, mode, out,
-             json.dumps(argv)], env=renv, cwd=HERE, stdout=subprocess.PIPE,
+            [sys.executable, "-c", _RANK_MAIN, HERE, json.dumps(jobs)],
+            env=renv, cwd=HERE, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    outs, deadline = [], time.time() + DP_TIMEOUT
+    _LIVE.extend(procs)
+    return jobs, ranks, procs, t0
+
+
+def finish_jobs(handle):
+    """Wait for `start_jobs`' processes -> for each job its RANK_RESULT
+    records by rank. Every process is killed and the phase fails if one
+    exits non-zero or the world outlives DP_TIMEOUT from its start."""
+    jobs, ranks, procs, t0 = handle
+    modes = "+".join(mode for mode, _, _ in jobs)
+    outs, deadline = [], t0 + DP_TIMEOUT
     try:
         for p in procs:
             left = max(1, deadline - time.time())
@@ -3390,20 +3512,32 @@ def run_ranks(mode, out, argv, ranks):
             p.kill()
         for p in procs:
             p.communicate()
-        fail("%s over %d rank(s) did not finish in %d s" % (mode, ranks,
+        fail("%s over %d rank(s) did not finish in %d s" % (modes, ranks,
                                                             DP_TIMEOUT))
-    results = {}
+    for p in procs:
+        _LIVE.remove(p)
+    results = [{} for _ in jobs]
     for p, text in zip(procs, outs):
         if p.returncode != 0:
-            fail("a %s rank exited %d:\n%s" % (mode, p.returncode,
+            fail("a %s rank exited %d:\n%s" % (modes, p.returncode,
                                                text[-4000:]))
         for line in text.splitlines():
             if line.startswith("RANK_RESULT "):
                 r = json.loads(line[len("RANK_RESULT "):])
-                results[r["rank"]] = r
-    if sorted(results) != list(range(max(ranks, 1))):
-        fail("%s: missing rank results:\n%s" % (mode, outs[0][-4000:]))
-    return [results[r] for r in sorted(results)]
+                results[r["job"]][r["rank"]] = r
+    if any(sorted(res) != list(range(max(ranks, 1))) for res in results):
+        fail("%s: missing rank results:\n%s" % (modes, outs[0][-4000:]))
+    own = max(sum(res[r]["wall_s"] for res in results) for r in results[0])
+    log("%s over %d rank(s): %.1f s from the start of the processes, the "
+        "ranks' own work %.1f s at most (the rest their start-up)"
+        % (modes, ranks, time.time() - t0, own))
+    return [[res[r] for r in sorted(res)] for res in results]
+
+
+def run_ranks(mode, out, argv, ranks):
+    """One job over `ranks` processes (`run_jobs`) -> its records by
+    rank."""
+    return run_jobs([(mode, out, argv)], ranks)[0]
 
 
 def host_data_time(root, dev):
@@ -3453,24 +3587,24 @@ def host_data_time(root, dev):
     return rec
 
 
-def k4_shard_record(dev):
-    """K4 at a rank's shard of the test split's posts (51 x N_EVAL / 2 x
-    1024): kernel vs plain, timed beside cuBLAS's one-call cosine."""
+def k4_record(dev, b, n, d, name, path, tag, seed=SEED + 12):
+    """K4 at b x n x d (a path's shape: a rank's shard of the test split,
+    the small tree's whole split, the dry run's post shard): kernel vs
+    plain, timed beside cuBLAS's one-call cosine."""
     import torch
     import torch.nn.functional as F
     from fancyrec_tpu_torch.ops.similarity import (
         cosine_scores_cuda, cosine_scores_ref)
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 12)
-    n = N_EVAL // DP_RANKS
-    brands, posts = _cosine_case(g, dev, N_BRANDS, n, DIM)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    brands, posts = _cosine_case(g, dev, b, n, d)
     with torch.no_grad():
         err = _cosine_err(cosine_scores_cuda(brands, posts),
                           cosine_scores_ref(brands, posts))
         if not err <= K4_TOL:
-            fail("cosine_scores at a rank's shard disagrees with its plain "
-                 "version: %.3g > %g" % (err, K4_TOL))
-        rec = {"name": "cosine_scores_shard", "counter": "cosine_scores",
+            fail("cosine_scores at %s disagrees with its plain version: %.3g "
+                 "> %g" % (tag, err, K4_TOL))
+        rec = {"name": name, "counter": "cosine_scores",
                "route": "cuda",
                "source": "fancyrec_tpu_torch/csrc/cosine_scores.cu",
                "replaces": "fancyrec_tpu/ops/similarity.py:108",
@@ -3482,12 +3616,12 @@ def k4_shard_record(dev):
                "library_ms": statistics.median(cuda_ms(
                    lambda: F.normalize(brands) @ F.normalize(posts).T, 50)
                    for _ in range(3)),
-               "path": "data-parallel evaluation",
-               **roofline(4 * (N_BRANDS * DIM + n * DIM + N_BRANDS * n),
-                          2 * N_BRANDS * n * DIM, F32_FLOPS)}
-    log("10b: cosine_scores %d x %d x %d (a rank's shard): kernel %.4f ms, "
-        "plain %.4f ms, cuBLAS %.4f ms, bound %.4f ms (%s); max err %.3g"
-        % (N_BRANDS, n, DIM, rec["ms"], rec["plain_ms"], rec["library_ms"],
+               "path": path,
+               **roofline(4 * (b * d + n * d + b * n), 2 * b * n * d,
+                          F32_FLOPS)}
+    log("cosine_scores %d x %d x %d (%s): kernel %.4f ms, plain %.4f ms, "
+        "cuBLAS %.4f ms, bound %.4f ms (%s); max err %.3g"
+        % (b, n, d, tag, rec["ms"], rec["plain_ms"], rec["library_ms"],
            rec["bound_ms"], rec["bound_by"], err))
     return rec
 
@@ -3530,11 +3664,14 @@ def update_diff(one, other, l_one, l_other):
     return text, ok
 
 
-def data_parallel_path(root, dev, sass):
-    """Phase 10: data parallelism, --mesh_shape R,1.
+def data_parallel_path(root, dev, sass, host_tree, one_jobs=()):
+    """Phase 10: data parallelism, --mesh_shape R,1, on the small tree
+    `root` (a's timing on phase 5's tree, `host_tree`). c's one process
+    then runs `one_jobs`, the one-process runs of later phases, so that
+    their start-up is paid once.
       a. the native gather is in use; host data time native vs memmap;
       b. K1-fwd, K1-bwd and K2 at a rank's batch (B=4, full width) and K4
-         at a rank's post shard, against their plain versions;
+         at a rank's post shard (51 x 102), against their plain versions;
       c. the trainer CLI for one recipe epoch outside a world and in a
          world of one over NCCL: the first update and the checkpoint equal
          bit for bit;
@@ -3550,7 +3687,8 @@ def data_parallel_path(root, dev, sass):
          matrix with ties and pad posts equals the oracle exactly.
     Every trainer run has the dropouts off (each rank draws its own masks)
     and deterministic algorithms on. -> {"records", "train_counts",
-    "eval_counts"}, the counts summed over d's and e's ranks."""
+    "eval_counts", "one_loss", "ones": one_jobs' records}, the counts
+    summed over d's and e's ranks."""
     import numpy as np
     import torch
     from fancyrec_tpu_torch.eval import tester
@@ -3558,22 +3696,39 @@ def data_parallel_path(root, dev, sass):
     from fancyrec_tpu_torch.train import checkpoints
 
     t_phase = time.time()
-    data_time = host_data_time(root, dev)
+    data_time = host_data_time(host_tree, dev)
     records = k1_records(dev, B_RANK, torch.float32, True, SEED + 11)
     records += check_aspect_dropout(dev, B_RANK, sass)[0]
     for r in records:
         r["path"] = "data-parallel training"
-    records.append(k4_shard_record(dev))
+    records.append(k4_record(
+        dev, N_BRANDS, N_SMALL // DP_RANKS, DIM, "cosine_scores_shard",
+        "data-parallel evaluation", "10b, a rank's shard of the test split"))
     torch.cuda.empty_cache()
 
     flags = ["--dropout", "0", "--bert_dropout", "0", "--device", str(dev)]
+    # e's tester runs in d's world, after d's trainer
+    logdir = os.path.join(root, "model", "dp_dp2")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
+             "1"]
+    mesh = ["--mesh_shape", "%d,1" % DP_RANKS]
+
+    def trainer_job(name, extra=()):
+        return ("train", os.path.join(root, "dp_" + name), instance_args(
+            root, "dp_" + name, 1) + flags + list(extra))
+    # c's two runs side by side (their times then show results, not speed;
+    # the bit-for-bit comparison holds either way), then d's world, which
+    # runs e's tester after its trainer
+    first = start_jobs([trainer_job("one")] + list(one_jobs), 0, of=2)
+    world1 = start_jobs([trainer_job("world1")], 1, of=2)
     runs = {}
-    for name, ranks, extra in (("one", 0, []), ("world1", 1, []),
-                               ("dp2", DP_RANKS, ["--mesh_shape", "%d,1"
-                                                  % DP_RANKS])):
-        out = os.path.join(root, "dp_" + name)
-        runs[name] = run_ranks("train", out, instance_args(
-            root, "dp_" + name, 1) + flags + extra, ranks)
+    runs["one"], *ones = finish_jobs(first)
+    runs["world1"] = finish_jobs(world1)[0]
+    runs["dp2"], tested = run_jobs([
+        trainer_job("dp2", mesh),
+        ("test", os.path.join(root, "dp_test"), targv + mesh)], DP_RANKS)
+    for name, ranks in (("one", 0), ("world1", 1), ("dp2", DP_RANKS)):
         for r in runs[name]:
             log("10%s: %s rank %d/%d (%s, device %s): %d updates, %.1f ms per "
                 "update (the first update's dump excluded), device peak %.2f "
@@ -3641,13 +3796,8 @@ def data_parallel_path(root, dev, sass):
                  "validation" % (r["rank"], c, micro))
     del first, one, dp, ckpt
 
-    # e. the tester over two ranks and in this process, d's checkpoint
-    logdir = os.path.join(root, "model", "dp_dp2")
-    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
-             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
-             "1"]
-    tested = run_ranks("test", os.path.join(root, "dp_test"),
-                       targv + ["--mesh_shape", "%d,1" % DP_RANKS], DP_RANKS)
+    # e. the tester over two ranks (in d's world) and in this process, d's
+    # checkpoint
     seen = {}
     ranking = tester.test_post_ranking
 
@@ -3715,7 +3865,8 @@ def data_parallel_path(root, dev, sass):
     log("data-parallel phase in %.1f s; host data time %s"
         % (time.time() - t_phase, json.dumps(data_time)))
     return {"records": records, "train_counts": sums(runs["dp2"]),
-            "eval_counts": sums(tested), "one_loss": runs["one"][0]["loss"]}
+            "eval_counts": sums(tested), "one_loss": runs["one"][0]["loss"],
+            "ones": ones}
 
 
 # ---------------------------------------------------------------------------
@@ -3769,9 +3920,24 @@ def check_k2_shards(dev, sass):
     return records
 
 
-def tensor_parallel_path(root, dev, sass, l_one):
-    """Phase 11: tensor parallelism, --mesh_shape R,M, on phase 5's tree
-    (after phase 10, whose one-process first update it compares with).
+def tp_one_jobs(root, step_tree, dev):
+    """The one-process updates of 11b (every dropout on, from the seed, on
+    the small tree `root`) and 11c (dropouts off, on phase 5's tree), as
+    `run_jobs` jobs."""
+    flags = ["--device", str(dev)]
+    return [("step_drop", os.path.join(root, "tpd_one"),
+             instance_args(root, "tpd_one", 1) + flags),
+            ("step", os.path.join(step_tree, "tp_one"),
+             instance_args(step_tree, "tp_one", 1) + flags
+             + ["--dropout", "0", "--bert_dropout", "0"])]
+
+
+def tensor_parallel_path(root, dev, sass, l_one, step_tree, ones, also=()):
+    """Phase 11: tensor parallelism, --mesh_shape R,M, on the small tree
+    `root` (after phase 10, whose one-process first update it compares
+    with), c on phase 5's tree `step_tree`. ones: the records of
+    `tp_one_jobs`, run in phase 10's one process; also: jobs of later
+    phases at (1, 2), which b's world runs after its own.
       a. K2 on aspect shards (`check_k2_shards`);
       b. the trainer CLI for one recipe epoch at --mesh_shape 1,2, two
          ranks sharing the card (gloo), every dropout off: its first update
@@ -3781,14 +3947,20 @@ def tensor_parallel_path(root, dev, sass, l_one):
          one update with every dropout on (the brand dropout through K2 on
          the shards) at (1, 2) against one process from the same seed;
       c. one update at --mesh_shape 2,2, four ranks on the card, against
-         10c's one-process update;
+         a one-process update of the same batch, on phase 5's tree: the
+         small tree's first super-batch holds a two-ulp near-tie in the
+         text conv bank's max-pool (microbatch 2, row 2, window 3, channel
+         131: 1.3612071 against 1.3612068), which the (2, 2) sum order
+         flips, moving that channel's weight grad by 0.6%; a step costs
+         the same on either tree;
       d. the tester CLI at (1, 2) on b's checkpoint: its metrics equal the
          one-process tester's, and the ranks' sharded metrics of the tie
          matrix the oracle's.
     l_one: the loss of 10c's one-process first update.
     -> {"records": the K2 shard records of the paths, "m4": the K2 records
     at M = 4 (on no main path), "train_counts", "step_counts",
-    "eval_counts"}, the counts summed over b's, c's and d's ranks."""
+    "eval_counts", "also": also's records}, the counts summed over b's,
+    c's and d's ranks."""
     import numpy as np
     import torch
     from fancyrec_tpu_torch.eval import tester
@@ -3807,9 +3979,30 @@ def tensor_parallel_path(root, dev, sass, l_one):
     off = ["--dropout", "0", "--bert_dropout", "0"]
     shape = "1,%d" % TP_MODEL
 
+    # the worlds: the (1, 2) ranks run b's trainer, b's update with every
+    # dropout on and d's tester in turn (then `also`); the (2, 2) ranks c's
+    # update
+    logdir = os.path.join(root, "model", "tp_12")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
+             "1"]
+    mesh = ["--mesh_shape", shape]
+    # (the two worlds side by side: their times show results, not speed)
+    world12 = start_jobs([
+        ("train", os.path.join(root, "tp_12"),
+         instance_args(root, "tp_12", 1) + flags + off + mesh),
+        ("step_drop", os.path.join(root, "tpd_tp"),
+         instance_args(root, "tpd_tp", 1) + flags + mesh),
+        ("test", os.path.join(root, "tp_test"), targv + mesh)]
+        + list(also), TP_MODEL, of=3 * TP_MODEL)
+    step = finish_jobs(start_jobs([("step", os.path.join(
+        step_tree, "tp_22"), instance_args(step_tree, "tp_22", 1) + flags
+        + off + ["--mesh_shape", "2,%d" % TP_MODEL])], 2 * TP_MODEL,
+        of=3 * TP_MODEL))[0]
+    tp, drop_tp, tested, *later = finish_jobs(world12)
+    drop_one, ref = ones
+
     # b. the trainer CLI at (1, 2), dropouts off
-    tp = run_ranks("train", os.path.join(root, "tp_12"), instance_args(
-        root, "tp_12", 1) + flags + off + ["--mesh_shape", shape], TP_MODEL)
     micro = tp[0]["updates"] * ACCUM
     for r in tp:
         log("11b: trainer at --mesh_shape %s, rank %d/%d (%s, device %s): %d "
@@ -3837,12 +4030,7 @@ def tensor_parallel_path(root, dev, sass, l_one):
         fail("the (1, %d) update disagrees with the one-process update"
              % TP_MODEL)
     # the same with every dropout on, one update from the same seed
-    drop = {}
-    for name, ranks, extra in (("one", 0, []),
-                               ("tp", TP_MODEL, ["--mesh_shape", shape])):
-        drop[name] = run_ranks("step_drop", os.path.join(
-            root, "tpd_" + name), instance_args(root, "tpd_" + name, 1)
-            + flags + extra, ranks)
+    drop = {"one": drop_one, "tp": drop_tp}
     text, ok = update_diff(
         torch.load(os.path.join(root, "tpd_one.first.pt")),
         torch.load(os.path.join(root, "tpd_tp.first.pt")),
@@ -3861,13 +4049,14 @@ def tensor_parallel_path(root, dev, sass, l_one):
         fail("the (1, %d) update with dropouts on disagrees with one "
              "process's" % TP_MODEL)
 
-    # c. (2, 2): four ranks, one update
-    step = run_ranks("step", os.path.join(root, "tp_22"), instance_args(
-        root, "tp_22", 1) + flags + off + ["--mesh_shape", "2,%d" % TP_MODEL],
-        2 * TP_MODEL)
-    text, ok = update_diff(one, torch.load(os.path.join(
-        root, "tp_22.first.pt")), l_one, step[0]["loss"])
-    log("11c: (2, %d) vs one process (phase 10c), first update: %s; per "
+    # c. (2, 2): four ranks, one update, against one process's update of
+    # the same batch, both on phase 5's tree
+    del one
+    text, ok = update_diff(
+        torch.load(os.path.join(step_tree, "tp_one.first.pt")),
+        torch.load(os.path.join(step_tree, "tp_22.first.pt")),
+        ref[0]["loss"], step[0]["loss"])
+    log("11c: (2, %d) vs one process (phase 5's tree), first update: %s; per "
         "rank: device peak %s GB, update %s s (the first of a process), "
         "launches %s"
         % (TP_MODEL, text, ["%.2f" % (r["peak_bytes"] / 1e9) for r in step],
@@ -3883,15 +4072,8 @@ def tensor_parallel_path(root, dev, sass, l_one):
                 and c["gru_scan_bwd"] == ACCUM):
             fail("(2, %d) rank %d launched %s for %d microbatches"
                  % (TP_MODEL, r["rank"], c, ACCUM))
-    del one
 
     # d. the tester at (1, 2) on b's checkpoint, against this process's
-    logdir = os.path.join(root, "model", "tp_12")
-    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
-             "--batch_size", str(B_ENC), "--device", str(dev), "--overwrite",
-             "1"]
-    tested = run_ranks("test", os.path.join(root, "tp_test"),
-                       targv + ["--mesh_shape", shape], TP_MODEL)
     t0 = time.time()
     single = tester.main(targv)._asdict()
     single_s = time.time() - t0
@@ -3931,7 +4113,7 @@ def tensor_parallel_path(root, dev, sass, l_one):
     log("tensor-parallel phase in %.1f s" % (time.time() - t_phase))
     return {"records": records, "m4": shard_recs[4],
             "train_counts": sums(tp), "step_counts": sums(step),
-            "eval_counts": sums(tested)}
+            "eval_counts": sums(tested), "also": later}
 
 
 # ---------------------------------------------------------------------------
@@ -4201,24 +4383,29 @@ def sharded_ivf(idx, dev):
     torch.cuda.empty_cache()
 
 
-def ranked_build(phase4, dev):
+def ranked_build_job(phase4, dev):
+    """12d's job for `run_jobs`: `index build` at --mesh_shape 2,1 on phase
+    4's collection and checkpoint into index_2rank beside phase 4's
+    index."""
+    work = os.path.dirname(phase4["idx"])
+    return ("build", os.path.join(work, "rank_build"), [
+        "build", os.path.join(work, "index_2rank"), "--checkpoint",
+        phase4["ckpt"], "--rootpath", phase4["root"], "--collection",
+        "insCartrain", "--batch_size", str(B_ENC), "--device", dev.type,
+        "--mesh_shape", "2,1"])
+
+
+def ranked_build(phase4, ranks):
     """12d: `index build` over two ranks sharing the card (gloo,
-    --mesh_shape 2,1) on phase 4's collection and checkpoint: the cap ids
-    of phase 4's one-process build in its order, the rows within
-    RANK_BUILD_TOL, K1 launched on each rank. -> the ranks' summed
-    launches."""
+    --mesh_shape 2,1; run in 12e's world, `ranks` its records) on phase
+    4's collection and checkpoint: the cap ids of phase 4's one-process
+    build in its order, the rows within RANK_BUILD_TOL, K1 launched on
+    each rank. -> the ranks' summed launches."""
     import numpy as np
     from fancyrec_tpu_torch.io.bigfile import BigFileReader
 
-    work = os.path.dirname(phase4["idx"])
-    out = os.path.join(work, "index_2rank")
-    argv = ["build", out, "--checkpoint", phase4["ckpt"], "--rootpath",
-            phase4["root"], "--collection", "insCartrain", "--batch_size",
-            str(B_ENC), "--device", dev.type, "--mesh_shape", "2,1"]
-    t0 = time.time()
-    ranks = run_ranks("build", os.path.join(work, "rank_build"), argv,
-                      DP_RANKS)
-    wall = time.time() - t0
+    out = os.path.join(os.path.dirname(phase4["idx"]), "index_2rank")
+    wall = max(r["wall_s"] for r in ranks)
     n = phase4["n_built"]
     got, want = (BigFileReader(out, delimiter="\t"),
                  BigFileReader(phase4["idx"], delimiter="\t"))
@@ -4234,8 +4421,8 @@ def ranked_build(phase4, dev):
     if got.names != want.names[:n]:
         fail("the ranked build's cap ids differ from one process's")
     err = float(np.abs(rows - ref).max())
-    log("12d: index build over %d ranks, %d posts: %.1f s (the world's "
-        "wall); cap ids in the one-process order, rows max |diff| %.3g "
+    log("12d: index build over %d ranks, %d posts: %.1f s (the ranks' "
+        "build); cap ids in the one-process order, rows max |diff| %.3g "
         "(tolerance atol %g, rtol %g)" % (DP_RANKS, got.nr_of_rows, wall,
                                           err, RANK_BUILD_TOL["atol"],
                                           RANK_BUILD_TOL["rtol"]))
@@ -4250,22 +4437,102 @@ def ranked_build(phase4, dev):
     return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
 
 
+def ranked_query(idx, single, dev, then):
+    """12e: `index query --quantize int8 --mesh_shape 2,1` for the 51
+    brands (k=10) over two ranks sharing the card (gloo), each holding its
+    500,001 of the 1,000,001 rows and launching K3 once: every rank's
+    answer bit-equal to 12a's one K3 call over the whole index (which 12a
+    found bit-equal to its S = 2 answer), only the primary printing; then
+    `--nprobe 8` over the same ranks (each holding its slot's IVF lists)
+    equal to the unsharded sidecar's answer. The sidecar, stale since
+    4b's append, is built again first. Each rank's K3 ms (CUDA events)
+    beside its bytes bound, and the ms of gathering its candidates: the
+    ranks share the card, so these show results, not speed. `then`: a job
+    the same world runs after the queries. -> (the ranks' summed launches
+    of the exact query, then's records)."""
+    import numpy as np
+    from fancyrec_tpu_torch.io.bigfile import BigFileReader
+    from fancyrec_tpu_torch.serving import index as sindex
+    from fancyrec_tpu_torch.serving.ivf import IVFIndex
+
+    t0 = time.time()
+    info = cli_json(sindex.main, ["ivf-build", idx, "--quantize", "int8",
+                                  "--device", str(dev)])
+    log("12e: ivf-build over the %d posts again: %.1f s" % (info["posts"],
+                                                          time.time() - t0))
+    names = BigFileReader(idx, delimiter="\t").names
+    brands = list(range(N_BRANDS))
+    argv = ["query", idx, "--brands", ",".join(map(str, brands)), "--k",
+            str(TOPK), "--quantize", "int8", "--device", dev.type,
+            "--mesh_shape", "%d,1" % DP_RANKS]
+    out = os.path.join(os.path.dirname(idx), "ranked_query")
+    ranks, after = run_jobs([("query", out, [argv, argv + ["--nprobe", "8"]]),
+                             then], DP_RANKS)
+    want = [[names[i] for i in row] for row in single["idxs"]]
+    ivf = IVFIndex.load(os.path.join(idx, "ivf"), device=dev)
+    iv, ii = ivf.query(np.load(os.path.join(idx, "brand_embeddings.npy")),
+                       k=TOPK, nprobe=8)
+    want_ivf = [[names[i] if i >= 0 else None for i in row] for row in ii]
+    del ivf
+    for r in ranks:
+        exact, probed = r["result"]["runs"]
+        got = r["result"]
+        log("12e: query rank %d/%d (%s): K3 launched %d times, %d rows "
+            "held; K3 on its %d valid rows %.4f ms, bound %.4f ms (%s); the "
+            "candidates' gather %.3f ms; --nprobe 8: %s lists held; printed "
+            "%d and %d lines; %.1f s wall, device peak %.2f GB"
+            % (r["rank"], r["world"], r["backend"], exact["k3"],
+               exact["rows"], got["local_rows"], got["k3_ms"],
+               got["bound_ms"], got["bound_by"], got["gather_ms"],
+               probed["lists"], exact["lines"], probed["lines"], r["wall_s"],
+               r["peak_bytes"] / 1e9))
+        vals = np.load("%s.0.%d.npy" % (out, r["rank"]))
+        if exact["k3"] != 1 or exact["rows"] != -(-len(names) // DP_RANKS):
+            fail("12e rank %d launched K3 %d times over %s rows"
+                 % (r["rank"], exact["k3"], exact["rows"]))
+        if not (np.array_equal(vals, single["vals"])
+                and exact["names"] == want):
+            fail("12e rank %d's answer differs from one K3 call's"
+                 % r["rank"])
+        pv = np.load("%s.1.%d.npy" % (out, r["rank"]))
+        if not (np.array_equal(pv, iv) and probed["names"] == want_ivf):
+            fail("12e rank %d's --nprobe 8 answer differs from the "
+                 "unsharded sidecar's" % r["rank"])
+        lines = N_BRANDS if r["rank"] == 0 else 0
+        if (exact["lines"], probed["lines"]) != (lines, lines):
+            fail("12e rank %d printed %s lines" % (
+                r["rank"], (exact["lines"], probed["lines"])))
+    log("12e: query over %d ranks, %d brands x k=%d: every rank's answer "
+        "bit-equal to one K3 call's (and so to 12a's S=%d answer), --nprobe "
+        "8 equal to the unsharded sidecar's, only the primary printed"
+        % (DP_RANKS, N_BRANDS, TOPK, DP_RANKS))
+    return ({k: sum(r["counts"][k] for r in ranks)
+             for k in ranks[0]["counts"]}, after)
+
+
 def sharded_serving_path(phase4, dev):
-    """Phase 12: sharded serving on phase 4's index (a-d above); launch
-    counts zeroed just before 12b and 12d and read just after."""
+    """Phase 12: sharded serving on phase 4's index (a-e above; e before
+    b's append, d in e's world); launch counts zeroed just before 12b and
+    read just after (12d's and 12e's ranks count their own)."""
     import torch
     t_phase = time.time()
     idx = phase4["idx"]
     records, single = check_k3_shards(idx, dev)
     torch.cuda.empty_cache()
+    # 12e before 12b's append: 12a's answer is over the same rows (each
+    # rank counts its own launches)
+    # 12e's world runs 12d's build after its queries
+    ranked_counts, build_ranks = ranked_query(idx, single, dev,
+                                              ranked_build_job(phase4, dev))
+    log("12e: ranked serving path launches (summed over the ranks): %s"
+        % ranked_counts)
     zero_counts()
     served = sharded_service(idx, phase4["reply"], single, dev)
     serve_counts = read_counts()
     log("12b: sharded serving path launches: %s" % serve_counts)
     torch.cuda.empty_cache()
     sharded_ivf(idx, dev)
-    zero_counts()
-    build_counts = ranked_build(phase4, dev)
+    build_counts = ranked_build(phase4, build_ranks)
     log("12d: ranked build path launches (summed over the ranks): %s"
         % build_counts)
     expect = SERVE_SHARDS * (N_REQUESTS + 1)
@@ -4274,7 +4541,8 @@ def sharded_serving_path(phase4, dev):
              % (serve_counts["topk_int8"], expect))
     log("sharded serving phase in %.1f s" % (time.time() - t_phase))
     return {"per_shard": records, "serve_counts": serve_counts,
-            "build_counts": build_counts, **served}
+            "build_counts": build_counts, "ranked_counts": ranked_counts,
+            **served}
 
 
 # ---------------------------------------------------------------------------
@@ -4331,12 +4599,29 @@ def _log_train(tag, what, ranks):
                    "aspect_dropout_bwd"))))
 
 
-def seq_pp_path(root, dev, sass, l_one):
-    """Phase 13: --seq_shard and --pp_stages over the model axis, on phase
-    5's tree, the ranks sharing the card (gloo), every dropout off,
-    deterministic algorithms on. First K1-fwd, K1-bwd and K2 at b's batch
-    of 12 and K1-fwd at c's of 96 against their plain versions (a's shapes
-    are phase 5's and 11's: B = 8, K2 on 1000 aspects); then
+def sp_job(root, dev):
+    """13a's trainer at --mesh_shape 1,2 --seq_shard, a `run_jobs` job."""
+    return ("train", os.path.join(root, "sp_12"), instance_args(
+        root, "sp_12", 1) + ["--device", str(dev), "--dropout", "0",
+                             "--bert_dropout", "0", "--mesh_shape", "1,2",
+                             "--seq_shard"])
+
+
+def pp_one_job(root, dev):
+    """13b's one-process update at batch 12, a `run_jobs` job."""
+    return ("step", os.path.join(root, "pp_one"), instance_args(
+        root, "pp_one", 1) + ["--device", str(dev), "--dropout", "0",
+                              "--bert_dropout", "0", "--batch_size",
+                              str(B_PP)])
+
+
+def seq_pp_path(root, dev, sass, l_one, sp=None, one=None):
+    """Phase 13: --seq_shard and --pp_stages over the model axis, on the
+    small tree (phase 10's), the ranks sharing the card (gloo), every
+    dropout off, deterministic algorithms on. First K1-fwd, K1-bwd and K2
+    at b's batch of 12, K1-fwd at c's of 96 and K4 at c's 51 x 204 against
+    their plain versions (a's shapes are phase 5's and 11's: B = 8, K2 on
+    1000 aspects); then
       a. the trainer CLI for one recipe epoch at --mesh_shape 1,2
          --seq_shard (batch 8): its first update within phase 5's card
          tolerances of phase 10c's one-process update of the same batch,
@@ -4350,8 +4635,10 @@ def seq_pp_path(root, dev, sass, l_one):
       c. the tester at (1, 3) on b's checkpoint (batch 96, so 3
          microbatches of 32; BERT's pipeline run) against this process's
          tester.
-    l_one: the loss of 10c's one-process first update. -> {"records": the
-    kernels at batch 12 and 96, "train_counts", "pp_counts",
+    l_one: the loss of 10c's one-process first update; sp, one: the records
+    of `sp_job` and `pp_one_job` where earlier worlds ran them (run here
+    when None). -> {"records": the
+    kernels at batch 12 and 96 and K4's, "train_counts", "pp_counts",
     "eval_counts"}, the counts summed over a's, b's and c's ranks."""
     import torch
     from fancyrec_tpu_torch.eval import tester
@@ -4367,12 +4654,16 @@ def seq_pp_path(root, dev, sass, l_one):
     # the tester's batch of c (its last batch padded to it)
     records += k1_records(dev, B_PP_TEST, torch.float32, False, SEED + 32)
     records[-1]["path"] = "pipeline evaluation"
+    # K4 on the small tree's whole test split, as each stage of c ranks it
+    records.append(k4_record(dev, N_BRANDS, N_SMALL, DIM,
+                             "cosine_scores_small", "pipeline evaluation",
+                             "13c, the small tree's test split"))
     torch.cuda.empty_cache()
     flags = ["--device", str(dev), "--dropout", "0", "--bert_dropout", "0"]
 
     # a. --seq_shard at (1, 2)
-    sp = run_ranks("train", os.path.join(root, "sp_12"), instance_args(
-        root, "sp_12", 1) + flags + ["--mesh_shape", "1,2", "--seq_shard"], 2)
+    if sp is None:
+        sp = run_ranks(*sp_job(root, dev), 2)
     _log_train("13a", "trainer at --mesh_shape 1,2 --seq_shard", sp)
     _launch_check(sp, sp[0]["updates"] * ACCUM, "13a")
     _split_check(sp, sp[0]["updates"] * ACCUM, "13a", seq=2)
@@ -4388,12 +4679,19 @@ def seq_pp_path(root, dev, sass, l_one):
 
     # b. --pp_stages 3 at (1, 3), batch 12, against one process
     batch = ["--batch_size", str(B_PP)]
-    one = run_ranks("step", os.path.join(root, "pp_one"), instance_args(
-        root, "pp_one", 1) + flags + batch, 0)
-    pp = run_ranks("train", os.path.join(root, "pp_13"), instance_args(
-        root, "pp_13", 1) + flags + batch + [
-            "--mesh_shape", "1,%d" % PP_STAGES, "--pp_stages",
-            str(PP_STAGES)], PP_STAGES)
+    if one is None:
+        one = run_ranks(*pp_one_job(root, dev), 0)
+    # the (1, 3) ranks run b's trainer, then c's tester on its checkpoint
+    logdir = os.path.join(root, "model", "pp_13")
+    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
+             "--batch_size", str(B_PP_TEST), "--device", str(dev),
+             "--overwrite", "1"]
+    mesh = ["--mesh_shape", "1,%d" % PP_STAGES]
+    pp, tested = run_jobs([
+        ("train", os.path.join(root, "pp_13"), instance_args(
+            root, "pp_13", 1) + flags + batch + mesh + [
+                "--pp_stages", str(PP_STAGES)]),
+        ("test", os.path.join(root, "pp_test"), targv + mesh)], PP_STAGES)
     _log_train("13b", "trainer at --mesh_shape 1,%d --pp_stages %d, batch "
                "%d" % (PP_STAGES, PP_STAGES, B_PP), pp)
     _launch_check(pp, pp[0]["updates"] * ACCUM, "13b")
@@ -4426,13 +4724,7 @@ def seq_pp_path(root, dev, sass, l_one):
         "%s)" % (PP_STAGES, split or "nothing", model.pp))
     del ck, model
 
-    # c. the tester at (1, 3) on b's checkpoint
-    logdir = os.path.join(root, "model", "pp_13")
-    targv = ["insCartest", "--rootpath", root, "--logger_name", logdir,
-             "--batch_size", str(B_PP_TEST), "--device", str(dev),
-             "--overwrite", "1"]
-    tested = run_ranks("test", os.path.join(root, "pp_test"), targv + [
-        "--mesh_shape", "1,%d" % PP_STAGES], PP_STAGES)
+    # c. the tester at (1, 3) on b's checkpoint (in b's world)
     t0 = time.time()
     single = tester.main(targv)._asdict()
     single_s = time.time() - t0
@@ -4469,6 +4761,106 @@ def seq_pp_path(root, dev, sass, l_one):
             "pp_counts": sums(pp), "eval_counts": sums(tested)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the flagship forward and the multi-rank dry run
+# ---------------------------------------------------------------------------
+
+DRY_RANKS = 4      # the dry run's world: (2, 2), the ranks sharing the card
+# the dry run's tiny shapes on a rank: K1 at its 4 rows of 8 frames, H 16
+# (32-d features); K2 on an aspect shard of 16 of 32 aspects, C 64; K4 at
+# the 4 brands x a data slot's 32 posts x 16
+DRY_B, DRY_T, DRY_H, DRY_D_IN, DRY_A, DRY_C = 4, 8, 16, 32, 32, 64
+DRY_BRANDS, DRY_POSTS, DRY_D = 4, 32, 16
+
+
+def flagship_path(dev, sass):
+    """Phase 14: (a) `entry.entry()`, the flagship forward at full width
+    (eval mode, the example batch of 8) on the card against the same
+    forward on the CPU within ENC_TOL, K1-fwd launched in it (its record
+    at B=8); (b) `entry.dryrun_multichip(4)`: four ranks sharing the card
+    (gloo) at (2, 2) with --seq_shard and the config's dropouts: finite
+    loss and grad norm, every rank's sharded metrics within 1e-5 of the
+    gathered ones, pp_delta < 1e-4, and each rank launching K1-fwd,
+    K1-bwd, K2-fwd, K2-bwd and K4 (each rank counts its own); K1, K2 and
+    K4 at its tiny shapes against their plain versions first.
+    -> {"records", "forward_counts", "dry_counts" (summed over the
+    ranks)}."""
+    import numpy as np
+    import torch
+    from fancyrec_tpu_torch import entry
+
+    t_phase = time.time()
+    records = k1_records(dev, B_TRAIN, torch.float32, False, SEED + 41)
+    records[-1]["path"] = "flagship forward"
+    zero_counts()
+    t0 = time.time()
+    fn, args = entry.entry(str(dev))
+    brand_card, post_card = fn(*args)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    forward_counts = read_counts()
+    t0 = time.time()
+    fn, args = entry.entry("cpu")
+    brand_cpu, post_cpu = fn(*args)
+    cpu_s = time.time() - t0
+    errs = [float((a.cpu() - b).abs().max()) for a, b in (
+        (brand_card, brand_cpu), (post_card, post_cpu))]
+    log("14a: the flagship forward (entry(), batch %d, full width): card "
+        "%.1f s, CPU %.1f s (each with its model's set-up); brand %s, post "
+        "%s; card vs CPU max |diff| %.3g / %.3g (tolerance atol %g rtol %g); "
+        "launches %s" % (len(args[0]), card_s, cpu_s,
+                         tuple(brand_card.shape), tuple(post_card.shape),
+                         *errs, ENC_TOL["atol"], ENC_TOL["rtol"],
+                         forward_counts))
+    for a, b in ((brand_card, brand_cpu), (post_card, post_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **ENC_TOL)
+    if forward_counts["gru_scan"] < 1:
+        fail("the flagship forward did not launch K1: %s" % forward_counts)
+    del fn, args, brand_card, post_card, brand_cpu, post_cpu
+    torch.cuda.empty_cache()
+
+    dry = k1_records(dev, DRY_B, torch.float32, True, SEED + 42, t=DRY_T,
+                     h=DRY_H, d_in=DRY_D_IN, sfx="_dry")
+    dry += check_aspect_dropout(dev, DRY_B, sass, model_axis=2,
+                                a_total=DRY_A, c=DRY_C, sfx="_dry")[0]
+    dry.append(k4_record(dev, DRY_BRANDS, DRY_POSTS, DRY_D,
+                         "cosine_scores_dry", "multi-rank dry run",
+                         "14b, a data slot's post shard"))
+    for r in dry:
+        r["path"] = "multi-rank dry run"
+    t0 = time.time()
+    got = entry.dryrun_multichip(DRY_RANKS)
+    wall = time.time() - t0
+    s = got["summary"]
+    for r in got["ranks"]:
+        log("14b: dry-run rank %d (%s, %s): launches %s; sharded metrics %s"
+            % (r["rank"], r["backend"], r["device"], r["launches"],
+               r["sharded_metrics"]))
+        c = r["launches"]
+        if not all(c[k] >= 1 for k in ("gru_scan", "gru_scan_bwd",
+                                       "aspect_dropout_fwd",
+                                       "aspect_dropout_bwd",
+                                       "cosine_scores")):
+            fail("dry-run rank %d launched %s" % (r["rank"], c))
+        if any(abs(v - r["metrics"][k]) >= 1e-5
+               for k, v in r["sharded_metrics"].items()):
+            fail("dry-run rank %d: sharded metrics differ from the gathered "
+                 "ones" % r["rank"])
+        if r["summary"] != s:
+            fail("the dry run's ranks report different summaries")
+    if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+            and s["pp_delta"] < 1e-4
+            and s["mesh"] == {"data": 2, "model": 2}):
+        fail("the dry run's summary %s" % s)
+    log("14b: dryrun_multichip(%d): %s; %.1f s (the world's wall)"
+        % (DRY_RANKS, json.dumps(s), wall))
+    dry_counts = {k: sum(r["launches"][k] for r in got["ranks"])
+                  for k in got["ranks"][0]["launches"]}
+    log("flagship and dry-run phase in %.1f s" % (time.time() - t_phase))
+    return {"records": records + dry, "forward_counts": forward_counts,
+            "dry_counts": dry_counts}
+
+
 def main():
     t_script = time.time()
     try:
@@ -4488,6 +4880,14 @@ def main():
              % e)
     if not os.path.abspath(fancyrec_tpu_torch.__file__).startswith(HERE):
         fail("fancyrec_tpu_torch imported from outside this checkout")
+
+    # each phase's seconds, logged beside the whole script's
+    spans, t_mark = {}, [t_script]
+
+    def mark(phase):
+        now = time.time()
+        spans[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     # 1. device
     smi_line = smi_name_power()
@@ -4522,12 +4922,14 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
+        mark("1-3")
         # 4. the serving path, counts zeroed just before and read just after
         zero_counts()
         served = main_path(work, dev)
         serving = read_counts()
         log("serving path launches: %s" % serving)
         torch.cuda.empty_cache()
+        mark("4")
         # 4b. the IVF sidecar of that index, served (K3 at B=1 on its exact
         # single-brand queries)
         zero_counts()
@@ -4535,9 +4937,11 @@ def main():
         ivf_serving = read_counts()
         log("IVF serving path launches: %s" % ivf_serving)
         torch.cuda.empty_cache()
+        mark("4b")
         # 4c. IVF recall and latency on a clustered 1M corpus
         ivf_clustered(dev)
         torch.cuda.empty_cache()
+        mark("4c")
         # 4d. the exported artifact of phase 4's checkpoint, served
         zero_counts()
         export_path(work, served, dev)
@@ -4548,6 +4952,7 @@ def main():
         phase4["reply"] = served["reply"]
         del served
         torch.cuda.empty_cache()
+        mark("4d")
         # 5. training: the card's step against the CPU's, then the trainer
         t0 = time.time()
         root = os.path.join(work, "insCarTrain")
@@ -4565,9 +4970,11 @@ def main():
         torch.cuda.reset_peak_memory_stats(dev)
         training, _ = train_path(root, dev)
         torch.cuda.empty_cache()
+        mark("5")
         # 6. evaluation: the tester CLI on the trained checkpoint
         evaluation = tester_path(root, dev)
         torch.cuda.empty_cache()
+        mark("6")
         # 7. the throughput mode: one bf16 update against the CPU's, remat,
         # then the trainer CLI (profiled) and the tester on its checkpoint
         bf16_step_card_vs_cpu(root, dev)
@@ -4577,9 +4984,11 @@ def main():
         fast, _ = fast_path(root, dev)
         torch.cuda.empty_cache()
         tester_path(root, dev, "fast")
+        mark("7")
         # 8. a checkpoint the JAX package wrote, on the card
         frtpu1_card(dev)
         torch.cuda.empty_cache()
+        mark("8")
         # 9. offline preprocessing: the ResNet-152 extractor and the
         # decode -> extract -> BigFile pipeline (cuDNN convolutions; none
         # of the six kernels is on this path, so its counts stay 0)
@@ -4587,27 +4996,48 @@ def main():
         preprocessing_path(os.path.join(work, "preprocess"), dev)
         log("preprocessing path launches: %s" % read_counts())
         torch.cuda.empty_cache()
+        mark("9")
+        # the rank worlds of phases 10-13 train and test on a smaller tree
+        # of the same width: their checks read one or two updates
+        t0 = time.time()
+        small = os.path.join(work, "insCarSmall")
+        make_fixture(small, brand_num=N_BRANDS,
+                     videos_per_brand=SMALL_VIDEOS_PER_BRAND,
+                     imgs_per_brand=SMALL_IMGS_PER_BRAND, feat_dim=D_IN,
+                     frames_per_video=FRAMES, seed=SEED)
+        log("the rank worlds' tree (%d posts a split): %.1f s"
+            % (N_SMALL, time.time() - t0))
         # 10. data parallelism: the native gather, the kernels at a rank's
         # shapes, the trainer in a world of one and of two ranks, the
         # tester over two ranks (each rank counts its own launches)
-        dp = data_parallel_path(root, dev, sass)
+        # 10c's one process also runs 11b's, 11c's and 13b's one-process
+        # updates, and 11b's (1, 2) world 13a's trainer: a world's start-up
+        # (mostly importing torch) is paid once
+        dp = data_parallel_path(small, dev, sass, root, tp_one_jobs(
+            small, root, dev) + [pp_one_job(small, dev)])
         kernels += dp["records"]
         torch.cuda.empty_cache()
+        mark("10")
         # 11. tensor parallelism: K2 on aspect shards, the trainer at (1, 2)
         # and one update at (2, 2), the tester at (1, 2)
-        tp = tensor_parallel_path(root, dev, sass, dp["one_loss"])
+        tp = tensor_parallel_path(small, dev, sass, dp["one_loss"], root,
+                                  dp["ones"][:2], [sp_job(small, dev)])
         kernels += tp["records"]
         torch.cuda.empty_cache()
-        # 12. sharded serving: K3 on post shards, the sharded service, the
-        # IVF lists over shards, the index build over two ranks
+        mark("11")
+        # 12. sharded serving: K3 on post shards, the query over two ranks,
+        # the sharded service, the IVF lists over shards, the index build
+        # over two ranks
         sh = sharded_serving_path(phase4, dev)
         next(k for k in kernels if k["name"] == "topk_int8")[
             "per_shard"] = sh["per_shard"]
         torch.cuda.empty_cache()
+        mark("12")
         # 13. sequence parallelism and the BERT pipeline: the trainer at
         # (1, 2) --seq_shard and at (1, 3) --pp_stages 3, the tester at
         # (1, 3) (each rank counts its own launches)
-        sp = seq_pp_path(root, dev, sass, dp["one_loss"])
+        sp = seq_pp_path(small, dev, sass, dp["one_loss"], tp["also"][0],
+                         dp["ones"][2])
         kernels += sp["records"]
         # 13a runs K1 and K2 at the shapes of phase 5 and 11b, and 13c K4
         # at phase 6's
@@ -4616,8 +5046,13 @@ def main():
                     or k["name"] == "gru_scan_bwd"):
                 k["path"] = (k.get("path", "training")
                              + "+sequence-parallel training")
-            if k["name"] == "cosine_scores":
-                k["path"] = "evaluation+pipeline evaluation"
+        torch.cuda.empty_cache()
+        mark("13")
+        # 14. the flagship forward (card against CPU) and the multi-rank
+        # dry run over four ranks (each counts its own launches)
+        fl = flagship_path(dev, sass)
+        kernels += fl["records"]
+        mark("14")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("gru_scan forward at the training batch (B=%d): %.3f ms (cuDNN GRU "
@@ -4632,15 +5067,19 @@ def main():
              "tensor-parallel step 2x2": tp["step_counts"],
              "tensor-parallel evaluation": tp["eval_counts"],
              "sharded serving": sh["serve_counts"],
+             "ranked serving": sh["ranked_counts"],
+             "flagship forward": fl["forward_counts"],
+             "multi-rank dry run": fl["dry_counts"],
              "sequence-parallel training": sp["train_counts"],
              "pipeline training": sp["pp_counts"],
              "pipeline evaluation": sp["eval_counts"],
              "ranked index build": sh["build_counts"]}
     # K1-fwd also runs inside the exported programs and the ranks' index
-    # build, K3 on the IVF path's exact single-brand queries and on the
-    # shards of the sharded service: their records count those launches too
+    # build, K3 on the IVF path's exact single-brand queries, on the shards
+    # of the sharded service and on each rank of the ranked query: their
+    # records count those launches too
     home = {"gru_scan": "serving+artifact+ranked index build",
-            "topk_int8": "serving+IVF serving+sharded serving",
+            "topk_int8": "serving+IVF serving+sharded serving+ranked serving",
             "cosine_scores": "evaluation"}
     for k in kernels:
         k.setdefault("path", home.get(k["name"], "training"))
@@ -4667,7 +5106,8 @@ def main():
                                                "shape", "a_off"))
          for r in tp["m4"]], allow_nan=False))
 
-    log("the whole script in %.1f s" % (time.time() - t_script))
+    log("the whole script in %.1f s; by phase (s): %s"
+        % (time.time() - t_script, json.dumps(spans)))
     # the contract's keys, then, where a record has them, its C entry's time
     # on buffers made once, its kernels' device time, and its path
     print(json.dumps({"kernels": [
@@ -4686,7 +5126,7 @@ def seq_pp_cards():
     card a rank (3 or more): the ranks of 13a-13c each take a card of
     their own and join over NCCL, so the pipeline's point-to-point
     messages and the model group's collectives stay on the cards. Builds
-    the three kernels of the path, makes phase 5's tree, runs 10c's
+    the three kernels of the path, makes phase 10's small tree, runs 10c's
     one-process epoch (the reference of 13a) on the first card, then
     `seq_pp_path`."""
     import torch
@@ -4707,8 +5147,8 @@ def seq_pp_cards():
     try:
         root = os.path.join(work, "insCarTrain")
         make_fixture(root, brand_num=N_BRANDS,
-                     videos_per_brand=TRAIN_VIDEOS_PER_BRAND,
-                     imgs_per_brand=TRAIN_IMGS_PER_BRAND, feat_dim=D_IN,
+                     videos_per_brand=SMALL_VIDEOS_PER_BRAND,
+                     imgs_per_brand=SMALL_IMGS_PER_BRAND, feat_dim=D_IN,
                      frames_per_video=FRAMES, seed=SEED)
         one = run_ranks("train", os.path.join(root, "dp_one"), instance_args(
             root, "dp_one", 1) + ["--dropout", "0", "--bert_dropout", "0",

@@ -6,7 +6,9 @@ here, each with its plain PyTorch version beside it:
 `cosine_scores_pallas` is `csrc/cosine_scores.cu` (`cosine_scores_ref`),
 the evaluation's brands x posts cosine; `retrieval_topk_fused_int8` is
 `csrc/topk_int8.cu` (`topk_int8_ref`), the int8 serving query, which
-`distributed_retrieval_topk` runs once a post shard.
+`distributed_retrieval_topk` (one process, shards on its devices) and
+`ranked_retrieval_topk` (a shard a data slot of a world) run once a post
+shard.
 
 Selection everywhere orders by (score descending, index ascending), the
 tie rule of lax.top_k, so the port returns the JAX package's indices.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from fancyrec_tpu_torch.ops import _build
+from fancyrec_tpu_torch.parallel import collectives
 
 # |int8 dot| <= 127^2 * D; below 2^24 a float32 matmul of int8 values sums
 # integers exactly in any order (D <= 1040). Wider rows score in float64.
@@ -460,6 +463,46 @@ def topk_int8(brands: torch.Tensor, posts_q: torch.Tensor,
     return topk_int8_cuda(brands, posts_q, posts_inv, k, n_valid)
 
 
+def shard_topk(brands: torch.Tensor, posts: torch.Tensor, k: int, *,
+               shard: int, shard_size: int, n_valid: int,
+               posts_inv: Optional[torch.Tensor] = None, fused: bool = False,
+               block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The local step of a sharded top-k: post shard `shard` holds global
+    rows [shard * shard_size, (shard + 1) * shard_size) and ranks its first
+    clip(n_valid - shard * shard_size, 0, shard_size) of them, with
+    `topk_int8` when fused (the CUDA kernel on a card; posts_inv its
+    inverse norms), else `retrieval_topk`. -> its candidates (values (B, k)
+    f32, global indices (B, k) int32) on the shard's device. A slot with
+    no valid candidate holds -inf at the global index of the shard's
+    filler (shard * shard_size for the fused path: its filler is local row
+    0)."""
+    local = min(max(n_valid - shard * shard_size, 0), shard_size)
+    q = brands.to(posts.device, non_blocking=True)
+    if fused:
+        v, i = topk_int8(q, posts, posts_inv, k, n_valid=local)
+    else:
+        v, i = retrieval_topk(q, posts, k, block=block, n_valid=local,
+                              posts_inv=posts_inv)
+    return v, i + shard * shard_size
+
+
+def merge_shard_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shards' candidates, shard-major along dim 1 ((B, S * k) values
+    and global indices) -> the top k by (value desc, index asc): a stable
+    sort keeps the lower global row first among equal values, as
+    `lax.top_k` over JAX's tiled all-gather keeps the lower position, so
+    the answer is the single-device one."""
+    v, sel = _topk_desc(vals, k)
+    return v, torch.gather(idxs, 1, sel.long())
+
+
+def _check_fused(fused: bool, shards, posts_inv) -> None:
+    if fused and (posts_inv is None
+                  or any(p.dtype != torch.int8 for p in shards)):
+        raise ValueError("fused=True needs an int8 index + posts_inv")
+
+
 def distributed_retrieval_topk(brands: torch.Tensor,
                                post_shards: Sequence[torch.Tensor], k: int,
                                *, n_valid: Optional[int] = None,
@@ -471,17 +514,10 @@ def distributed_retrieval_topk(brands: torch.Tensor,
     """Top-k over posts split into shards, each on its own device: the JAX
     package's `distributed_retrieval_topk` from one process.
 
-    Shard s holds global rows [s * shard_size, (s + 1) * shard_size) and
-    ranks its first clip(n_valid - s * shard_size, 0, shard_size) of them:
-    `topk_int8` when fused (the CUDA kernel on a card; posts_inv, one
-    inverse-norm vector a shard, required), else `retrieval_topk`. Every
-    shard is launched before anything waits on a device. The shards'
-    candidates, their indices made global, go to the first shard's device
-    in shard order and one top-k by (value desc, index asc) merges them:
-    as `lax.top_k` over JAX's tiled all-gather, ties go to the lower global
-    row, so the answer is the single-device one. A slot with no valid
-    candidate holds -inf, at the global index of its shard's filler (s *
-    shard_size for the fused shards, whose filler is local row 0).
+    Shard s runs `shard_topk` (posts_inv: one inverse-norm vector a shard,
+    required when fused). Every shard is launched before anything waits on
+    a device. The shards' candidates go to the first shard's device in
+    shard order and `merge_shard_topk` merges them.
     -> (values (B, k) f32, indices (B, k) int32) on the first shard's
     device."""
     shards = list(post_shards)
@@ -495,24 +531,38 @@ def distributed_retrieval_topk(brands: torch.Tensor,
     invs = [None] * len(shards) if posts_inv is None else list(posts_inv)
     if len(invs) != len(shards):
         raise ValueError("posts_inv needs one vector a shard")
-    if fused and (posts_inv is None
-                  or any(p.dtype != torch.int8 for p in shards)):
-        raise ValueError("fused=True needs an int8 index + posts_inv")
-    total = shard_size * len(shards)
-    n_valid = total if n_valid is None else int(n_valid)
+    _check_fused(fused, shards, posts_inv)
+    n_valid = shard_size * len(shards) if n_valid is None else int(n_valid)
     home = shards[0].device
     vals, idxs = [], []
     for s, (posts, inv) in enumerate(zip(shards, invs)):
-        local = min(max(n_valid - s * shard_size, 0), shard_size)
-        q = brands.to(posts.device, non_blocking=True)
-        if fused:
-            v, i = topk_int8(q, posts, inv, k, n_valid=local)
-        else:
-            v, i = retrieval_topk(q, posts, k, block=block, n_valid=local,
-                                  posts_inv=inv)
+        v, i = shard_topk(brands, posts, k, shard=s, shard_size=shard_size,
+                          n_valid=n_valid, posts_inv=inv, fused=fused,
+                          block=block)
         vals.append(v.to(home, non_blocking=True))
-        idxs.append((i + s * shard_size).to(home, non_blocking=True))
-    # shard-major candidates: a stable sort keeps the lower global row first
-    # among equal values, as lax.top_k keeps the lower position
-    v, sel = _topk_desc(torch.cat(vals, 1), k)
-    return v, torch.gather(torch.cat(idxs, 1), 1, sel.long())
+        idxs.append(i.to(home, non_blocking=True))
+    return merge_shard_topk(torch.cat(vals, 1), torch.cat(idxs, 1), k)
+
+
+def ranked_retrieval_topk(brands: torch.Tensor, posts: torch.Tensor, k: int,
+                          *, n_valid: int, posts_inv: Optional[torch.Tensor]
+                          = None, fused: bool = False, block: int = 4096
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`distributed_retrieval_topk` over the ranks of a world: this rank
+    holds post shard d (its data slot; every model rank of the slot holds
+    the same shard, as the JAX mesh replicates a data shard over its model
+    row), all shards of one size. It runs `shard_topk` on its own shard,
+    the shards' candidates are gathered over the data group in slot order
+    (`collectives.all_gather`; through host memory under gloo), and
+    `merge_shard_topk` merges them. Every rank returns the same answer,
+    the one-process answer over the same shards. A collective: every rank
+    of the world calls it with the same brands and k."""
+    _check_fused(fused, [posts], posts_inv)
+    v, i = shard_topk(brands, posts, k, shard=collectives.data_rank(),
+                      shard_size=posts.shape[0], n_valid=n_valid,
+                      posts_inv=posts_inv, fused=fused, block=block)
+    b = v.shape[0]
+    # (S, B, k) in slot order -> (B, S * k), shard-major along the rows
+    vals = collectives.all_gather(v[None]).permute(1, 0, 2).reshape(b, -1)
+    idxs = collectives.all_gather(i[None]).permute(1, 0, 2).reshape(b, -1)
+    return merge_shard_topk(vals, idxs, k)

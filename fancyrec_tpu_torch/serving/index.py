@@ -15,12 +15,23 @@ Meshes, as in the JAX package, on two layouts:
     and only the primary writes the index;
   * a query process holds the posts in shards, one a device of a
     `parallel.mesh.ServingMesh` (`PostIndex(mesh=...)`, `query
-    --mesh_shape`: the host's cards by the JAX `build_mesh` rules), and
-    answers with `ops.similarity.distributed_retrieval_topk`. The rows pad
-    to a multiple of the shard count and the pad rows never rank. The JAX
-    package pads to its fused block times the shards, since its Pallas
-    grid takes whole blocks; the port's K3 takes any shard length, so the
-    port pads to the shard multiple only.
+    --mesh_shape` outside a world: the host's cards by the JAX
+    `build_mesh` rules), and answers with
+    `ops.similarity.distributed_retrieval_topk`;
+  * `query --mesh_shape R,M` in a world (torchrun, or RANK / WORLD_SIZE /
+    MASTER_ADDR / MASTER_PORT) lays the ranks out with
+    `parallel.mesh.build_mesh`, as the JAX CLI builds one mesh over the
+    devices of every process: the rank of data slot d holds post shard d
+    (every model rank of the slot a copy, as JAX replicates a data shard
+    over its model row), read alone from the store or the int8 sidecar,
+    and its IVF lists (`IVFIndex.load(part=)`); the answers are gathered
+    and merged over the data group (`ops.similarity.
+    ranked_retrieval_topk`), every rank holds them, and the primary
+    prints.
+The rows pad to a multiple of the shard count and the pad rows never
+rank. The JAX package pads to its fused block times the shards, since its
+Pallas grid takes whole blocks; the port's K3 takes any shard length, so
+the port pads to the shard multiple only.
 
 CLI (runs on CUDA unless --device cpu):
   python -m fancyrec_tpu_torch.serving.index build out/ --checkpoint ... \
@@ -30,6 +41,8 @@ CLI (runs on CUDA unless --device cpu):
   python -m fancyrec_tpu_torch.serving.index ivf-build out/ --quantize int8
   python -m fancyrec_tpu_torch.serving.index query out/ --brands 0,3 --k 10 \
       [--nprobe 8] [--mesh_shape auto]
+  torchrun --nproc_per_node R -m fancyrec_tpu_torch.serving.index query \
+      out/ --brands 0,3 --quantize int8 --mesh_shape R,1
 """
 
 from __future__ import annotations
@@ -45,8 +58,10 @@ import torch
 from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.io.bigfile import BigFileReader, BigFileWriter
 from fancyrec_tpu_torch.ops.similarity import (
-    distributed_retrieval_topk, quantize_rows_int8_np, retrieval_topk,
-    topk_int8)
+    distributed_retrieval_topk, quantize_rows_int8_np, ranked_retrieval_topk,
+    retrieval_topk, topk_int8)
+from fancyrec_tpu_torch.parallel import distributed
+from fancyrec_tpu_torch.parallel.mesh import Mesh, build_mesh
 
 
 def load_collection(ckpt, rootpath: str, collection: str,
@@ -316,6 +331,15 @@ class PostIndex:
     first device of the mesh takes the place of `device`: the queries'
     brands and the merged answers live there. A mesh of one device is the
     single-device path on that device.
+
+    mesh (a `parallel.mesh.Mesh`, this rank's place in a world's layout)
+    makes the index one rank's: the shards are the R data slots', this
+    rank holds its slot's shard alone on `device` (`posts()` is that one
+    tensor), read from the store (or the int8 sidecar) by itself, and its
+    slot's IVF lists; queries are collectives of the world
+    (`ranked_retrieval_topk`, `IVFIndex._query_ranked`) whose answer every
+    rank holds. With int8, the primary writes a missing or stale sidecar
+    before any rank reads it.
     """
 
     def __init__(self, index_dir: str, quantize: str = "", device="cuda",
@@ -323,9 +347,14 @@ class PostIndex:
         if quantize not in ("", "int8"):
             raise ValueError("quantize must be '' or 'int8'")
         self.mesh = mesh
-        self.device = (resolve_device(device) if mesh is None
-                       else resolve_device(mesh.devices[0]))
-        self._shards = 1 if mesh is None else mesh.shards
+        # (data slot, data slots) of this rank in a world, else None
+        self._slot = ((mesh.data_rank, mesh.data)
+                      if isinstance(mesh, Mesh) else None)
+        self.device = (resolve_device(mesh.devices[0])
+                       if mesh is not None and self._slot is None
+                       else resolve_device(device))
+        self._shards = (1 if mesh is None else
+                        mesh.data if self._slot else mesh.shards)
         self.quantize = quantize
         self._index_dir = index_dir
         self.brand_embs = np.load(
@@ -372,30 +401,51 @@ class PostIndex:
                            self._index_dir))
                     return None
                 from fancyrec_tpu_torch.serving.ivf import IVFIndex
-                self._ivf = IVFIndex.load(ivf_dir, device=self.device)
-                if self._shards > 1:
+                self._ivf = IVFIndex.load(ivf_dir, device=self.device,
+                                          part=self._slot)
+                if self._shards > 1 and self._slot is None:
                     self._ivf.shard_to_mesh(self.mesh)
         return self._ivf
 
-    def _load_quantized(self):
-        """int8 rows + inv-norm sidecar, cached on disk next to the store
-        (feature.int8.bin / inv_norms.npy). Valid only if at least as new
-        as feature.bin with exactly matching row counts; anything else
-        requantizes in full. Read-only index dirs quantize in memory."""
+    def _sidecar(self):
+        """The int8 sidecar cached next to the store (feature.int8.bin /
+        inv_norms.npy), mapped, not read -> (rows (N, D), inverse norms)
+        or None. Valid only if at least as new as feature.bin with exactly
+        matching row counts."""
         n, d = self.n_posts, self.store.ndims
         qpath = os.path.join(self._index_dir, "feature.int8.bin")
         ipath = os.path.join(self._index_dir, "inv_norms.npy")
         fpath = os.path.join(self._index_dir, "feature.bin")
-        if os.path.exists(qpath) and os.path.exists(ipath) \
-                and os.path.getmtime(qpath) >= os.path.getmtime(fpath):
-            q = np.fromfile(qpath, np.int8)
-            try:
-                inv = np.load(ipath).astype(np.float32)
-            except (ValueError, OSError):
-                inv = np.zeros(0, np.float32)   # corrupt sidecar: rebuild
-            if q.size == n * d and inv.size == n:
-                return q.reshape(n, d), inv
-        q, inv = quantize_rows_int8_np(self.store.read_rows(np.arange(n)))
+        if not (os.path.exists(qpath) and os.path.exists(ipath)
+                and os.path.getmtime(qpath) >= os.path.getmtime(fpath)
+                and os.path.getsize(qpath) == n * d):
+            return None
+        try:
+            inv = np.load(ipath, mmap_mode="r")
+        except (ValueError, OSError):
+            return None                       # corrupt sidecar: rebuild
+        if inv.size != n:
+            return None
+        return np.memmap(qpath, np.int8, "r", shape=(n, d)), inv
+
+    def _load_quantized(self, lo: int = 0, hi: int = None, write=True):
+        """int8 rows [lo, hi) + their inverse norms, from the sidecar where
+        it is valid; anything else requantizes: the whole store, written
+        back as the sidecar (atomically; read-only index dirs quantize in
+        memory) when `write`, else only rows [lo, hi) (rows quantize
+        independently, so they equal the sidecar's)."""
+        hi = self.n_posts if hi is None else hi
+        side = self._sidecar()
+        if side is not None:
+            q, inv = side
+            return np.array(q[lo:hi]), np.array(inv[lo:hi], np.float32)
+        if not write:
+            return quantize_rows_int8_np(self.store.read_rows(
+                np.arange(lo, hi)))
+        q, inv = quantize_rows_int8_np(
+            self.store.read_rows(np.arange(self.n_posts)))
+        qpath = os.path.join(self._index_dir, "feature.int8.bin")
+        ipath = os.path.join(self._index_dir, "inv_norms.npy")
         try:
             # atomic (tmp + rename): a crash mid-save leaves a complete
             # file or none, never a truncated one
@@ -406,7 +456,33 @@ class PostIndex:
             os.replace(ipath + ".tmp.npy", ipath)
         except OSError:
             pass
-        return q, inv
+        return q[lo:hi], inv[lo:hi]
+
+    def _slot_rows(self):
+        """This rank's post shard in a world: its data slot's rows of the
+        store (or of the int8 sidecar, which the primary writes first
+        where it is missing or stale), zero-padded to `shard_size` as
+        `shard_rows` pads the last shard -> (rows, inverse norms or
+        None)."""
+        size = self.shard_size
+        lo = min(self._slot[0] * size, self.n_posts)
+        hi = min(lo + size, self.n_posts)
+        inv = None
+        if self.quantize == "int8":
+            if distributed.is_primary():
+                rows, inv = self._load_quantized(lo, hi)
+            distributed.barrier()
+            if not distributed.is_primary():
+                rows, inv = self._load_quantized(lo, hi, write=False)
+        else:
+            rows = self.store.read_rows(np.arange(lo, hi))
+        pad = size - (hi - lo)
+        if pad:
+            rows = np.concatenate([rows, np.zeros((pad, rows.shape[1]),
+                                                  rows.dtype)])
+            if inv is not None:
+                inv = np.concatenate([inv, np.zeros(pad, np.float32)])
+        return rows, inv
 
     @property
     def shard_size(self) -> int:
@@ -414,15 +490,17 @@ class PostIndex:
         return -(-self.n_posts // self._shards)
 
     def posts(self):
-        """The device-resident rows: one tensor, or over a mesh the list
-        of shards."""
+        """The device-resident rows: one tensor, or over a ServingMesh the
+        list of shards, or in a world this rank's shard."""
         if self._posts is None:
             inv = None
-            if self.quantize == "int8":
+            if self._slot is not None:
+                rows, inv = self._slot_rows()
+            elif self.quantize == "int8":
                 rows, inv = self._load_quantized()
             else:
                 rows = self.store.read_rows(np.arange(self.n_posts))
-            if self._shards == 1:
+            if self._shards == 1 or self._slot is not None:
                 self._posts = torch.from_numpy(rows).to(self.device)
                 if inv is not None:
                     self._posts_inv = torch.from_numpy(inv).to(self.device)
@@ -456,7 +534,11 @@ class PostIndex:
             self.device)
         posts = self.posts()
         fused = fused_eligible(self.quantize, k, self.store.ndims)
-        if self._shards > 1:
+        if self._slot is not None:
+            vals, idxs = ranked_retrieval_topk(
+                q, posts, k, n_valid=self.n_posts, posts_inv=self._posts_inv,
+                fused=fused, block=block)
+        elif self._shards > 1:
             vals, idxs = distributed_retrieval_topk(
                 q, posts, k, n_valid=self.n_posts, shard_size=self.shard_size,
                 posts_inv=self._posts_inv, fused=fused, block=block)
@@ -551,14 +633,18 @@ def main(argv=None):
                         "sidecar, probing nprobe coarse clusters")
     q.add_argument("--mesh_shape", default="",
                    help="'auto' = shard posts over all local devices; "
-                        "'N' or 'N,1' = over N; '' = single device")
+                        "'N' or 'N,1' = over N; '' = single device. In a "
+                        "world (torchrun): 'R,M' = over its R*M ranks, a "
+                        "post shard a data slot; 'auto' = every rank on "
+                        "data")
     q.add_argument("--quantize", default="", choices=["", "int8"])
     a = p.parse_args(argv)
-    if a.cmd in ("build", "add"):
-        # join the world the environment describes (none: one process), as
-        # the tester does; every rank encodes, the primary writes
-        from fancyrec_tpu_torch.parallel import distributed
-        from fancyrec_tpu_torch.parallel.mesh import build_mesh
+    # as the JAX CLI joins its job before it builds the one mesh of every
+    # subcommand: build and add always (a world's ranks encode), query
+    # where --mesh_shape asks for a mesh
+    in_world = a.cmd in ("build", "add") or (
+        a.cmd == "query" and a.mesh_shape and "WORLD_SIZE" in os.environ)
+    if in_world:
         device = distributed.initialize_multihost(a.device)
         mesh = build_mesh("" if a.mesh_shape == "auto" else a.mesh_shape)
     if a.cmd == "build":
@@ -578,20 +664,22 @@ def main(argv=None):
                                  device=a.device)
         print(json.dumps(info))
     else:
-        mesh = None
-        if a.mesh_shape:
-            from fancyrec_tpu_torch.parallel.mesh import (
-                serving_mesh, visible_devices)
-            mesh = serving_mesh(a.mesh_shape, visible_devices(a.device))
-        index = PostIndex(a.index_dir, quantize=a.quantize, device=a.device,
+        if not in_world:
+            device, mesh = a.device, None
+            if a.mesh_shape:
+                from fancyrec_tpu_torch.parallel.mesh import (
+                    serving_mesh, visible_devices)
+                mesh = serving_mesh(a.mesh_shape, visible_devices(a.device))
+        index = PostIndex(a.index_dir, quantize=a.quantize, device=device,
                           device_resident=a.nprobe == 0, mesh=mesh)
         ids = [int(x) for x in a.brands.split(",")]
         vals, names = index.query(ids, k=a.k, nprobe=a.nprobe)
-        for b_id, v, n in zip(ids, vals, names):
-            print(json.dumps({"brand": b_id,
-                              "results": [{"post": pid,
-                                           "score": round(float(s), 5)}
-                                          for pid, s in zip(n, v)]}))
+        if distributed.is_primary():
+            for b_id, v, n in zip(ids, vals, names):
+                print(json.dumps({"brand": b_id,
+                                  "results": [{"post": pid,
+                                               "score": round(float(s), 5)}
+                                              for pid, s in zip(n, v)]}))
 
 
 if __name__ == "__main__":

@@ -16,8 +16,9 @@ exactly, so the only recall loss is a post whose list was not probed.
   * int8 mode scores with the exact integer dots of `ops/similarity`
     (per-row max-abs quantization; only 1/||q|| survives per row).
   * `shard_to_mesh` splits the lists over the devices of a serving mesh
-    (capacity past one card); a sharded query answers as the JAX
-    package's sharded query does.
+    (capacity past one card), and `load(part=)` gives a rank of a world
+    its data slot's lists of the same split; a sharded query answers as
+    the JAX package's sharded query does.
 
 Every argmax and top-k orders ties as the JAX package's `argmax` and
 `lax.top_k` do: value descending, index ascending (`_topk_ordered`). The
@@ -41,6 +42,7 @@ import torch
 
 from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.ops.similarity import _int_dots, quantize_rows_int8
+from fancyrec_tpu_torch.parallel import collectives
 
 _BLOCK = 16384          # rows a k-means assignment or choice block
 _PROBE_CHUNK = 128      # probed lists scored together in a query
@@ -334,6 +336,14 @@ def _pad_k(vals: torch.Tensor, ids: torch.Tensor, k: int
     return vals, ids
 
 
+def _merge_candidates(vals: torch.Tensor, ids: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shards' candidates of one query, shard-major -> the top k by
+    (value desc, position asc), padded to k with -inf / -1."""
+    v, pos = _topk_ordered(vals[None], min(k, vals.shape[0]))
+    return _pad_k(v[0], ids[pos[0]], k)
+
+
 class IVFIndex:
     """Packed IVF-Flat index over post embeddings, on one device, or with
     its lists sharded over several (`shard_to_mesh`).
@@ -365,9 +375,10 @@ class IVFIndex:
         self.radii = None if radii is None else put(radii, torch.float32)
         n_lists, self.cap = self.packed_idx.shape
         self._int8 = self.packed.dtype == torch.int8
-        # the ServingMesh the lists are sharded over (shard_to_mesh), and
-        # the lists a shard holds
-        self.mesh, self._per = None, n_lists
+        # the ServingMesh the lists are sharded over (shard_to_mesh), or
+        # (slot, slots) where this process holds one data slot's lists of a
+        # world (`load(part=)`); the lists a shard holds
+        self.mesh, self.part, self._per = None, None, n_lists
         self.nlist = int(self.centroids.shape[0])
         self.overflow_lists = n_lists - self.nlist
         # fraction of posts that exhausted their centroid choices at build
@@ -388,7 +399,7 @@ class IVFIndex:
         the list's valid members (int8 packs recover the member direction
         through inv_norms); 0 for an empty list. Runs before
         shard_to_mesh."""
-        if self.mesh is not None:
+        if self.mesh is not None or self.part is not None:
             raise ValueError("compute_radii runs on an unsharded index")
         int8 = self._int8
         qf = float(quantile)
@@ -574,7 +585,7 @@ class IVFIndex:
         probes itself, and here the one process selects them once a query.
         Queries then return exactly what the JAX package's sharded query
         returns (`_query_sharded`)."""
-        if self.mesh is not None:
+        if self.mesh is not None or self.part is not None:
             raise ValueError("the IVF index is already sharded")
         n_shards = mesh.shards
         n_lists = self.packed_idx.shape[0]
@@ -664,38 +675,69 @@ class IVFIndex:
         vals, local = _topk_ordered(s[None], min(k, s.shape[0]))
         return _pad_k(vals[0], ids[local[0]], k)
 
+    def _shard_candidates(self, q: torch.Tensor, probe: np.ndarray, s: int,
+                          kk: int, packed, packed_idx, inv, dev):
+        """Shard s's part of a sharded query: the probed lists it owns, in
+        probe order, scanned -> its top kk = min(k, (nprobe + overflow) *
+        cap) (a shard that owns every probed list must not drop a true
+        top-k post), padded to kk with -inf / -1 as JAX's masked slots
+        are."""
+        mine = probe[probe // self._per == s] - s * self._per
+        lists = torch.from_numpy(mine).to(dev)
+        sc, sid = self._scan(self._query_form(q.to(dev)), lists, packed,
+                             packed_idx, inv)
+        v, pos = _topk_ordered(sc[None], min(kk, sc.shape[0]))
+        return _pad_k(v[0], sid[pos[0]], kk)
+
+    def _probes(self, qs: torch.Tensor, k: int, nprobe: int, mode: str):
+        """Every query's probed lists, on the host -> (probes (Q, P), the
+        candidates kk a shard keeps)."""
+        probes = torch.stack([self.probe_lists(q, nprobe, mode)
+                              for q in qs]).cpu().numpy()
+        return probes, min(k, probes.shape[1] * self.cap)
+
     def _query_sharded(self, qs: torch.Tensor, k: int, nprobe: int,
                        mode: str):
         """The JAX package's sharded query from one process. The probes of
-        every query are selected once on the first device and read on the
-        host; shard s scans the probed lists it owns, in probe order, and
-        keeps its top kk = min(k, (nprobe + overflow) * cap) (a shard that
-        owns every probed list must not drop a true top-k post), padded to
-        kk with -inf / -1 as JAX's masked slots are. Shard-major, the
-        candidates merge by (value desc, position asc), as JAX's
-        all-gather and `lax.top_k` merge them, then pad to k."""
-        probes = torch.stack([self.probe_lists(q, nprobe, mode)
-                              for q in qs]).cpu().numpy()
-        kk = min(k, probes.shape[1] * self.cap)
+        every query are selected once on the first device; shard s gives
+        its `_shard_candidates`. Shard-major, the candidates merge by
+        (value desc, position asc), as JAX's all-gather and `lax.top_k`
+        merge them (`_merge_candidates`)."""
+        probes, kk = self._probes(qs, k, nprobe, mode)
         home = self.mesh.devices[0]
         invs = self.inv_norms or [None] * self.mesh.shards
         out = []
         for q, probe in zip(qs, probes):
             vals, ids = [], []
             for s, dev in enumerate(self.mesh.devices):
-                mine = probe[probe // self._per == s] - s * self._per
-                lists = torch.from_numpy(mine).to(dev)
-                sc, sid = self._scan(self._query_form(q.to(dev)), lists,
-                                     self.packed[s], self.packed_idx[s],
-                                     invs[s])
-                v, pos = _topk_ordered(sc[None], min(kk, sc.shape[0]))
-                v, i = _pad_k(v[0], sid[pos[0]], kk)
+                v, i = self._shard_candidates(q, probe, s, kk, self.packed[s],
+                                              self.packed_idx[s], invs[s],
+                                              dev)
                 vals.append(v.to(home, non_blocking=True))
                 ids.append(i.to(home, non_blocking=True))
-            v, pos = _topk_ordered(torch.cat(vals)[None], min(k, kk * len(
-                vals)))
-            out.append(_pad_k(v[0], torch.cat(ids)[pos[0]], k))
+            out.append(_merge_candidates(torch.cat(vals), torch.cat(ids), k))
         return out
+
+    def _query_ranked(self, qs: torch.Tensor, k: int, nprobe: int,
+                      mode: str):
+        """The sharded query over the ranks of a world (`load(part=)`):
+        every rank selects the probes itself from the replicated
+        centroids, as each JAX device does, gives its slot's
+        `_shard_candidates` for every query, and the candidates of all
+        queries are gathered over the data group in slot order, then
+        merged as `_query_sharded` merges them. A collective."""
+        probes, kk = self._probes(qs, k, nprobe, mode)
+        slot = self.part[0]
+        cands = [self._shard_candidates(q, probe, slot, kk, self.packed,
+                                        self.packed_idx, self.inv_norms,
+                                        self.device)
+                 for q, probe in zip(qs, probes)]
+        # (S, Q, kk) in slot order
+        vals = collectives.all_gather(torch.stack([v for v, _ in cands])[None])
+        ids = collectives.all_gather(torch.stack([i for _, i in cands])[None])
+        return [_merge_candidates(vals[:, j].reshape(-1),
+                                  ids[:, j].reshape(-1), k)
+                for j in range(len(cands))]
 
     def query(self, query_embs, k: int = 10, nprobe: int = 8,
               probe: Optional[str] = None
@@ -717,7 +759,9 @@ class IVFIndex:
         if mode not in ("bound", "cosine"):
             raise ValueError("probe must be 'bound' or 'cosine'")
         with torch.no_grad():
-            if self.mesh is not None:
+            if self.part is not None:
+                outs = self._query_ranked(qs, k, nprobe, mode)
+            elif self.mesh is not None:
                 outs = self._query_sharded(qs, k, nprobe, mode)
             else:
                 outs = [self._query_one(q, k, nprobe, mode) for q in qs]
@@ -732,6 +776,9 @@ class IVFIndex:
         packed.bin (raw rows), inv_norms.npy (int8), radii.npy and
         ivf_meta.json. A sharded index saves its lists whole, without the
         pad lists."""
+        if self.part is not None:
+            raise ValueError("a world's rank holds one slot's lists: save "
+                             "the sidecar from an unsharded index")
         os.makedirs(path, exist_ok=True)
         n_lists = self.nlist + self.overflow_lists
 
@@ -758,21 +805,48 @@ class IVFIndex:
             f.write(json.dumps(meta))
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "IVFIndex":
+    def load(cls, path: str, device="cuda", part=None) -> "IVFIndex":
+        """A saved sidecar on `device`. part=(slot, slots): only the lists
+        of data slot `slot` of a world of `slots` (a rank of
+        `PostIndex(mesh=Mesh)`), split as `shard_to_mesh` splits them and
+        padded alike, read from the files by memory map; the centroids and
+        radii whole. Its queries are collectives of the world
+        (`_query_ranked`)."""
         device = resolve_device(device)
         with open(os.path.join(path, "ivf_meta.json")) as f:
             meta = json.loads(f.read())
-        packed = np.fromfile(os.path.join(path, "packed.bin"),
-                             np.dtype(meta["dtype"]))
         n_lists = meta["nlist"] + meta.get("overflow_lists", 0)
-        packed = packed.reshape(n_lists, meta["cap"], meta["dim"])
+        shape = (n_lists, meta["cap"], meta["dim"])
         inv_path = os.path.join(path, "inv_norms.npy")
-        inv = np.load(inv_path) if os.path.exists(inv_path) else None
+        has_inv = os.path.exists(inv_path)
+        if part is None:
+            packed = np.fromfile(os.path.join(path, "packed.bin"),
+                                 np.dtype(meta["dtype"])).reshape(shape)
+            packed_idx = np.load(os.path.join(path, "packed_idx.npy"))
+            inv = np.load(inv_path) if has_inv else None
+        else:
+            slot, slots = part
+            per = -(-n_lists // slots)
+            lo, hi = min(slot * per, n_lists), min((slot + 1) * per, n_lists)
+
+            def mine(a, fill):
+                a = np.asarray(a[lo:hi])
+                return np.concatenate([a, np.full(
+                    (per - (hi - lo),) + a.shape[1:], fill, a.dtype)])
+            packed = mine(np.memmap(os.path.join(path, "packed.bin"),
+                                    np.dtype(meta["dtype"]), "r",
+                                    shape=shape), 0)
+            packed_idx = mine(np.load(os.path.join(path, "packed_idx.npy"),
+                                      mmap_mode="r"), -1)
+            inv = (mine(np.load(inv_path, mmap_mode="r"), 1)
+                   if has_inv else None)
         rad_path = os.path.join(path, "radii.npy")
         rad = np.load(rad_path) if os.path.exists(rad_path) else None
         out = cls(np.load(os.path.join(path, "centroids.npy")), packed,
-                  np.load(os.path.join(path, "packed_idx.npy")), inv,
-                  radii=rad, device=device)
+                  packed_idx, inv, radii=rad, device=device)
+        if part is not None:
+            out.part, out._per = tuple(part), per
+            out.overflow_lists = n_lists - out.nlist
         out.spill_frac = meta.get("spill_frac")
         out.source_posts = meta.get("source_posts")
         return out
