@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from fancyrec_tpu_torch.data.dataset import PostDataset
+from fancyrec_tpu_torch.utils.profiling import span
 
 
 def _pick_bucket(need: int, buckets, cap: int) -> int:
@@ -175,6 +176,8 @@ def prefetch_to_device(iterator, device: torch.device, keys, size: int = 2,
     turns `keys` into pinned tensors; up to `size` batches wait in the
     queue. The consumer copies them with `non_blocking=True` and yields
     (host_batch, device_tensors). A producer failure is re-raised here.
+    The consumer's wait on the queue is the span `data.wait`, one a batch
+    and one for the end of the stream.
     """
     pin = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -206,7 +209,8 @@ def prefetch_to_device(iterator, device: torch.device, keys, size: int = 2,
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if item is _END:
                 break
             if isinstance(item, _ProducerError):

@@ -13,12 +13,12 @@ emits the txt lines, for byte-level checks of the pipeline).
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from fancyrec_tpu_torch.io.bigfile import BigFileWriter
+from fancyrec_tpu_torch.utils.profiling import span
 
 
 def iter_image_files(image_dir: str, names: Optional[Iterable[str]] = None,
@@ -74,10 +74,13 @@ def extract_features(stream: Iterable[Tuple[str, np.ndarray]],
     A producer exception re-raises here, and the BigFile is then left
     without id.txt and shape.txt (never silently truncated).
 
-    If `stats` is a dict, it is filled with wall-clock attribution for the
-    consumer side: `wait_s` (blocked on the decode queue: producer
-    starvation), `compute_s` (extractor forward + device fetch), `write_s`
-    (BigFile append), and `batches`.
+    The consumer's legs are the spans `extract.wait` (the next staged
+    batch: blocked on the decode queue, producer starvation, and the copy
+    issued to the card), `extract.forward` (the extractor and the fetch of
+    its rows, which waits for the card) and `extract.write` (the BigFile
+    append and the txt lines). If `stats` is a dict, it is filled with
+    their totals in seconds, `wait_s`, `compute_s` and `write_s` (the
+    wait for the end of the stream included), and with `batches`.
     """
     import torch
 
@@ -100,38 +103,37 @@ def extract_features(stream: Iterable[Tuple[str, np.ndarray]],
 
     txt = open(txt_path, "w") if txt_path else None
     written = 0
-    wait_s = compute_s = write_s = 0.0
+    totals = {} if stats is not None else None
     n_batches = 0
     try:
         with BigFileWriter(out_dir) as w:
             while True:
-                t0 = time.perf_counter()
-                try:
-                    (names, images), staged = next(batches)
-                except StopIteration:
+                with span("extract.wait", totals):
+                    item = next(batches, None)
+                if item is None:
                     break
-                t1 = time.perf_counter()
-                if extract_fn is None:
-                    feats = extractor(staged["images"]).cpu().numpy()
-                else:
-                    feats = np.asarray(extract_fn(images))
-                feats = feats[: len(names)]
-                t2 = time.perf_counter()
-                written += w.write_batch(names, feats)
-                if txt is not None:
-                    for n, row in zip(names, feats):
-                        txt.write(n + " " + " ".join("%g" % v for v in row)
-                                  + "\n")
-                t3 = time.perf_counter()
-                wait_s += t1 - t0
-                compute_s += t2 - t1
-                write_s += t3 - t2
+                (names, images), staged = item
+                with span("extract.forward", totals):
+                    if extract_fn is None:
+                        feats = extractor(staged["images"]).cpu().numpy()
+                    else:
+                        feats = np.asarray(extract_fn(images))
+                    feats = feats[: len(names)]
+                with span("extract.write", totals):
+                    written += w.write_batch(names, feats)
+                    if txt is not None:
+                        for n, row in zip(names, feats):
+                            txt.write(n + " " + " ".join("%g" % v
+                                                         for v in row)
+                                      + "\n")
                 n_batches += 1
     finally:
         batches.close()
         if txt is not None:
             txt.close()
     if stats is not None:
-        stats.update(wait_s=wait_s, compute_s=compute_s, write_s=write_s,
+        stats.update(wait_s=totals.get("extract.wait", 0.0),
+                     compute_s=totals.get("extract.forward", 0.0),
+                     write_s=totals.get("extract.write", 0.0),
                      batches=n_batches)
     return written

@@ -42,6 +42,7 @@ from fancyrec_tpu_torch.models.encoders import TextBatch, VisualBatch
 from fancyrec_tpu_torch.parallel import collectives
 from fancyrec_tpu_torch.train.state import (
     TrainState, clip_grad_norm, global_norm, sharded_params)
+from fancyrec_tpu_torch.utils.profiling import span
 
 
 def micro_loss(model, cfg: Config, queue, mb: Dict[str, torch.Tensor]):
@@ -84,7 +85,18 @@ def train_step(model, opt: torch.optim.Optimizer, cfg: Config,
 
     -> (state, metrics) with metrics {"loss": the mean over A, "last_loss",
     "grad_norm": the summed grads' global norm before the clip}, all 0-d
-    tensors on the device (reading them waits for the device)."""
+    tensors on the device (reading them waits for the device).
+
+    The call is the span `train.step`; inside it each microbatch's
+    `train.forward` (the forward and loss) and `train.backward`, then one
+    `train.optimizer` (the clip or the norm, and the optimizer's step).
+    They are the host's time: the device runs what they issue later,
+    unless an operation inside them waits for it."""
+    with span("train.step"):
+        return _train_step(model, opt, cfg, state, superbatch)
+
+
+def _train_step(model, opt, cfg, state, superbatch):
     model.train()
     a = superbatch["frames"].shape[0]
     params = list(model.parameters())
@@ -93,9 +105,11 @@ def train_step(model, opt: torch.optim.Optimizer, cfg: Config,
     queue = state.queue
     losses = []
     for i in range(a):
-        loss, queue = micro_loss(model, cfg, queue,
-                                 {k: v[i] for k, v in superbatch.items()})
-        loss.backward()                        # sums into .grad
+        with span("train.forward"):
+            loss, queue = micro_loss(model, cfg, queue,
+                                     {k: v[i] for k, v in superbatch.items()})
+        with span("train.backward"):
+            loss.backward()                    # sums into .grad
         losses.append(loss.detach())
     # a parameter the loss does not reach gets a zero grad, as under optax,
     # so its moments still decay: torch's optimizers skip grad=None
@@ -110,11 +124,12 @@ def train_step(model, opt: torch.optim.Optimizer, cfg: Config,
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
     sharded = sharded_params(model)
-    if cfg.grad_clip > 0:
-        grad_norm = clip_grad_norm(grads, cfg.grad_clip, sharded)
-    else:
-        grad_norm = global_norm(grads, sharded)
-    opt.step()
+    with span("train.optimizer"):
+        if cfg.grad_clip > 0:
+            grad_norm = clip_grad_norm(grads, cfg.grad_clip, sharded)
+        else:
+            grad_norm = global_norm(grads, sharded)
+        opt.step()
     losses = torch.stack(losses)
     return (TrainState(queue=queue, step=state.step + a),
             {"loss": losses.mean(), "last_loss": losses[-1],

@@ -202,7 +202,9 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
     """One pass over `loader` -> (state, {"losses", "seconds", "posts"}).
     A background thread assembles and pins the next super-batches while
     the device runs the current step; every collective stays on this
-    thread. "posts" counts the global batches' posts."""
+    thread. "posts" counts the global batches' posts. The read of the
+    losses that ends the epoch, which waits for the device, is the span
+    `train.loss_read`."""
     print("Epoch[{0} / {1}] LR: {2}".format(epoch, cfg.num_epochs,
                                              current_lr(opt)))
     losses = []
@@ -218,7 +220,8 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
         losses.append(metrics["loss"])
         n_items += (superbatch["frames"].shape[0]
                     * superbatch["frames"].shape[1] * collectives.data_size())
-    losses = [float(x) for x in losses]
+    with profiling.span("train.loss_read"):
+        losses = [float(x) for x in losses]
     dt = time.time() - t0
     if losses:
         print("epoch %d: mean loss %.4f  (%d updates, %.1f posts/s)"

@@ -14,6 +14,7 @@ The bi-GRU computes in its input's dtype, float32 in both towers, as in
 the JAX package (`test_bigru_stays_float32_under_bf16_towers`).
 """
 
+import gzip
 import json
 import os
 
@@ -469,6 +470,12 @@ def test_fast_mode_trains_profiles_evaluates_and_serves(root, tmp_path):
     traces = os.listdir(prof)
     assert len(traces) == 1 and traces[0].endswith(".json.gz")
     assert os.path.getsize(os.path.join(prof, traces[0])) > 0
+    with gzip.open(os.path.join(prof, traces[0]), "rt") as f:
+        events = json.load(f)["traceEvents"]
+    # the program's spans, as ranges of their names above their kernels
+    names = {e.get("name") for e in events}
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer", "data.wait", "train.loss_read"} <= names
     logdir = os.path.join(root, "model", "fast")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
