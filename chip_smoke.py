@@ -1175,14 +1175,15 @@ def k2_entries(w, asp, g, seed, keep, a_total=None, a_off=0):
     bits = torch.empty((b, a, -(-c // 32)), dtype=torch.int32, device=dev)
     scratch = torch.empty(plan.scratch_floats, device=dev)
     dw, dasp = torch.empty_like(w), torch.empty_like(asp)
-    fwd_args = bd.aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed,
+    key = bd.key_words(seed, dev)
+    fwd_args = bd.aspect_dropout_fwd_args(w, asp, out, bits, scratch, key,
                                           keep, plan, a_total, a_off)
     bwd_args = bd.aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep,
                                           plan, a_total)
     fwd_fn, bwd_fn = bd._fwd_fn(), bd._bwd_fn()
     if fwd_fn(*fwd_args) or bwd_fn(*bwd_args):
         fail("the aspect_dropout C entries failed")
-    keep_alive = (out, bits, scratch, dw, dasp)
+    keep_alive = (out, bits, scratch, dw, dasp, key)
 
     def both():
         fwd_fn(*fwd_args)

@@ -13,10 +13,12 @@
 //
 // Random bits. The TPU kernel draws from the TPU's hardware generator,
 // which has no counterpart here. The words are Philox4x32-10 (Salmon et
-// al., SC'11; Random123's constants), keyed by the two seed words. Element
-// (b, a, c) takes word e & 3 of the Philox block at counter e >> 2, where
-// e = (b A + a) C + c: a pure function of the element, not of the launch
-// geometry. The mask follows the batch row b, not the brand id.
+// al., SC'11; Random123's constants), keyed by the two seed words, which
+// the forward reads from device memory, so that a captured launch takes
+// the words of each replay. Element (b, a, c) takes word e & 3 of the
+// Philox block at counter e >> 2, where e = (b A + a) C + c: a pure
+// function of the element, not of the launch geometry. The mask follows
+// the batch row b, not the brand id.
 //
 // An aspect shard (tensor parallelism: a model rank holds aspects
 // [a_off, a_off + A) of a table of A_total) draws the counters of its
@@ -200,7 +202,8 @@ template <bool FAST, bool BITS>
 __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
     const float* __restrict__ w, const float* __restrict__ asp,
     float* __restrict__ part, uint32_t* __restrict__ bits, int B, int A,
-    int C, int A_total, int a_off, int span, uint2 key, uint32_t thr) {
+    int C, int A_total, int a_off, int span,
+    const unsigned long long* __restrict__ key, uint32_t thr) {
   __shared__ float4 ws[F_MAX_SPAN][F_ROWS / 4];        // w of the span
   __shared__ float4 red[F_WARPS][F_ROWS][32];          // the warps' sums
   let_dependents_start();
@@ -209,7 +212,9 @@ __global__ void __launch_bounds__(F_THREADS, 2) adm_fwd_kernel(
   const int b0 = blockIdx.z * F_ROWS;
   const int a_lo = blockIdx.y * span, a_hi = min(A, a_lo + span);
   const bool aligned = (C & 3) == 0;
-  const RoundKeys rk = round_keys(key);
+  const RoundKeys rk =
+      round_keys(make_uint2(static_cast<uint32_t>(__ldg(key)),
+                            static_cast<uint32_t>(__ldg(key + 1))));
   // the first asp row is on its way while w fills shared memory
   int a = a_lo + warp;
   float4 next = a < a_hi ? load4(asp + (size_t)a * C, c0, C, aligned)
@@ -597,7 +602,9 @@ __global__ void __launch_bounds__(B_THREADS, 2) adm_bwd_stream(
 }  // namespace
 
 // Returns a CUDA error code (0 on success); launches on `stream`, does not
-// synchronise. seed0, seed1: the two key words. w and asp hold aspects
+// synchronise. key: a device pointer to the two key words, each the low
+// 32 bits of a 64-bit word (a CUDA graph replays the launch with whatever
+// words the caller wrote there before the replay). w and asp hold aspects
 // [a_off, a_off + A) of a table of A_total (the whole table: A_total = A,
 // a_off = 0); scale is 1 / (A_total keep). `bits` may be null: no keep
 // bits are written. `scratch` holds splits x B x CP floats (CP: C rounded
@@ -608,10 +615,10 @@ extern "C" int aspect_dropout_fwd(const void* w, const void* asp, void* out,
                                   void* bits, void* scratch,
                                   long long scratch_floats, int B, int A,
                                   int C, int A_total, int a_off, int splits,
-                                  int span, unsigned seed0, unsigned seed1,
-                                  unsigned thr, float scale, void* stream) {
-  if (B <= 0 || A <= 0 || C <= 0 || span <= 0 || span > F_MAX_SPAN ||
-      a_off < 0 || (long long)a_off + A > A_total ||
+                                  int span, const void* key, unsigned thr,
+                                  float scale, void* stream) {
+  if (key == nullptr || B <= 0 || A <= 0 || C <= 0 || span <= 0 ||
+      span > F_MAX_SPAN || a_off < 0 || (long long)a_off + A > A_total ||
       splits <= 0 || splits > 65535 || (B + F_ROWS - 1) / F_ROWS > 65535 ||
       (long long)splits * span < A || (long long)(splits - 1) * span >= A)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -627,19 +634,19 @@ extern "C" int aspect_dropout_fwd(const void* w, const void* asp, void* out,
   const float* ap = static_cast<const float*>(asp);
   float* pp = static_cast<float*>(scratch);
   uint32_t* bp = static_cast<uint32_t*>(bits);
-  const uint2 key = make_uint2(seed0, seed1);
+  const unsigned long long* kp = static_cast<const unsigned long long*>(key);
   if (fast && bp)
     adm_fwd_kernel<true, true><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, kp, thr);
   else if (fast)
     adm_fwd_kernel<true, false><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, kp, thr);
   else if (bp)
     adm_fwd_kernel<false, true><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, kp, thr);
   else
     adm_fwd_kernel<false, false><<<grid, F_THREADS, 0, st>>>(
-        wp, ap, pp, bp, B, A, C, A_total, a_off, span, key, thr);
+        wp, ap, pp, bp, B, A, C, A_total, a_off, span, kp, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

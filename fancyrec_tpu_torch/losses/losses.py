@@ -19,7 +19,7 @@ normalization of a bfloat16 embedding stays in bfloat16.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -130,7 +130,9 @@ def crossclr_loss(brand: torch.Tensor, post: torch.Tensor, *,
 
 class ContrastiveQueueState(NamedTuple):
     queue: torch.Tensor   # (K, C) past normalized post embeddings
-    ptr: int              # insertion pointer
+    # insertion pointer: an int, or a 0-d int64 tensor on the queue's
+    # device (the CUDA-graphed train step's, which the device advances)
+    ptr: Union[int, torch.Tensor]
 
 
 def init_queue_state(queue_size: int, embedding_size: int,
@@ -148,7 +150,8 @@ def contrastive_loss(brand: torch.Tensor, post: torch.Tensor,
                      no_intra: bool = False
                      ) -> Tuple[torch.Tensor, ContrastiveQueueState]:
     """The recipe's 'cl' loss -> (loss, next queue state). The state's
-    queue is never written in place."""
+    queue is never written in place. An int pointer gives an int next
+    pointer, a tensor one a tensor: the same indices either way."""
     scores = _raw_scores(brand, post)
     weight = rank_weights(scores, axis=1)
     b = brand.shape[0]
@@ -169,8 +172,10 @@ def contrastive_loss(brand: torch.Tensor, post: torch.Tensor,
         ori_logits = _mm(post_n, queue.T)                   # (B, K)
         cols = (new_ptr + rows) % k       # masks from the advanced pointer
         new_state = ContrastiveQueueState(queue=queue, ptr=new_ptr)
-    pos_mask = torch.ones_like(ori_logits)
-    pos_mask[rows, cols] = 0.0
+    # 0 at (i, cols[i]), 1 elsewhere: a comparison, not an indexed store
+    # of a host scalar, which a CUDA graph capture refuses
+    pos_mask = (cols[:, None] != torch.arange(
+        ori_logits.shape[1], device=cols.device)[None, :]).to(ori_logits.dtype)
 
     inter = _mm(brand_n, post_n.T) / temperature
     intra = ori_logits * pos_mask / temperature

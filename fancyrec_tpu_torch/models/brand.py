@@ -60,22 +60,32 @@ class BrandAspects(nn.Module):
         local = num_aspects if shard is None else shard[1]
         self.p = 0.5                     # dropout probability, as nn.Dropout.p
         self.seed_generator = None       # host generator of the seed words
+        # an iterator of (2,) device tensors that stands in for the draws
+        # while a CUDA graph captures a training update (`train/step.py`):
+        # each training call takes the next one, the seed words that the
+        # graph's caller draws with `draw_seed` and writes there
+        self.seed_rows = None
         self.brand_embeddings = nn.Parameter(
             torch.empty(brand_num + 1, local))
         self.aspects_embeddings = nn.Parameter(torch.empty(local, common_dim))
+
+    def draw_seed(self) -> torch.Tensor:
+        """The seed words of one training call: two 32-bit key words in an
+        int64 host tensor, drawn on the host (no device sync)."""
+        if self.seed_generator is None:
+            raise RuntimeError("the brand dropout in training mode draws its "
+                               "seed words from an explicit generator: call "
+                               "seed_dropout(seed) on the model first")
+        return torch.randint(0, 2 ** 32, (2,), generator=self.seed_generator,
+                             dtype=torch.int64)
 
     def forward(self, brand_ids: torch.Tensor) -> torch.Tensor:
         weights = l1_penalty(self.brand_embeddings[brand_ids])   # (B, A)
         if not self.training:
             out = (weights @ self.aspects_embeddings) / self.num_aspects
             return out if self.shard is None else collectives.model_reduce(out)
-        if self.seed_generator is None:
-            raise RuntimeError("the brand dropout in training mode draws its "
-                               "seed words from an explicit generator: call "
-                               "seed_dropout(seed) on the model first")
-        # two 32-bit key words a call, drawn on the host: no device sync
-        seed = torch.randint(0, 2 ** 32, (2,), generator=self.seed_generator,
-                             dtype=torch.int64).tolist()
+        seed = (self.draw_seed() if self.seed_rows is None
+                else next(self.seed_rows))
         if self.shard is None:
             return aspect_dropout_mean(weights, self.aspects_embeddings, seed,
                                        1.0 - self.p)

@@ -275,7 +275,7 @@ def _fwd_fn():
     fn = _build.load("aspect_dropout").aspect_dropout_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 7 + [ctypes.c_uint] * 3
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_uint]
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -290,20 +290,39 @@ def _bwd_fn():
     return fn
 
 
-def aspect_dropout_fwd_args(w, asp, out, bits, scratch, seed, keep, plan,
+def key_words(seed, device: torch.device) -> torch.Tensor:
+    """The two seed words as the int64 (2,) tensor on `device` that K2's
+    forward reads its key from: a contiguous int64 (2,) tensor already
+    there as it is; ints, or a tensor elsewhere, through page-locked
+    memory without waiting for the device (PyTorch's pinned-memory cache
+    does not hand the block out again before the copy has run)."""
+    if (isinstance(seed, torch.Tensor) and seed.device == device
+            and seed.dtype is torch.int64 and seed.shape == (2,)
+            and seed.is_contiguous()):
+        return seed
+    words = [int(s) & _U32 for s in seed]
+    if len(words) != 2:
+        raise ValueError("the seed is two key words, got %d" % len(words))
+    return torch.tensor(words, dtype=torch.int64, pin_memory=True).to(
+        device, non_blocking=True)
+
+
+def aspect_dropout_fwd_args(w, asp, out, bits, scratch, key, keep, plan,
                             a_total=None, a_off=0):
     """The arguments of K2's forward C entry `aspect_dropout_fwd` for
     contiguous CUDA tensors and a plan, on the current stream of w's card;
-    bits None writes no keep bits. w and asp may hold aspects [a_off,
-    a_off + A) of a table of a_total."""
+    bits None writes no keep bits; key: the seed words on w's card
+    (`key_words`), which the caller keeps alive while the arguments are in
+    use. w and asp may hold aspects [a_off, a_off + A) of a table of
+    a_total."""
     b, a = w.shape
     a_total, a_off = _span(w, a_total, a_off)
     thr, scale = keep_threshold(a_total, keep)
     return (w.data_ptr(), asp.data_ptr(), out.data_ptr(),
             None if bits is None else bits.data_ptr(), scratch.data_ptr(),
             plan.scratch_floats, b, a, asp.shape[1], a_total, a_off,
-            plan.splits, plan.span, int(seed[0]) & _U32,
-            int(seed[1]) & _U32, thr, scale, _build.raw_stream(w.device))
+            plan.splits, plan.span, key.data_ptr(), thr, scale,
+            _build.raw_stream(w.device))
 
 
 def aspect_dropout_bwd_args(w, asp, g, bits, dw, dasp, keep, plan,
@@ -357,8 +376,9 @@ def aspect_dropout_fwd_cuda(w: torch.Tensor, asp: torch.Tensor,
     plan = aspect_dropout_plan(b, a, c, _build.sm_count(dev))
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=dev)
+    key = key_words(seed, dev)
     _run("aspect_dropout_fwd", _fwd_fn(), aspect_dropout_fwd_args(
-        w, asp, out, bits, scratch, seed, keep, plan, a_total, a_off), dev)
+        w, asp, out, bits, scratch, key, keep, plan, a_total, a_off), dev)
     aspect_dropout_fwd_cuda.launches += 1
     return (out, bits) if with_bits else out
 
@@ -432,10 +452,14 @@ def aspect_dropout_mean(w: torch.Tensor, asp: torch.Tensor,
     plain versions for CPU tensors.
 
     w: (B, A) aspect weights, asp: (A, C) aspect matrix, float32; seed: two
-    32-bit key words; keep: the keep probability. -> (B, C) float32. On an
-    aspect shard (aspects [a_off, a_off + A) of a_total), this shard's
-    share of the whole table's output: the shards' outputs sum to it."""
-    seed = tuple(int(s) for s in seed)
+    32-bit key words, as ints or an int64 tensor of two (on the card, one
+    on w's device is read there: a CUDA graph's replay takes the words its
+    caller wrote into it); keep: the keep probability. -> (B, C) float32.
+    On an aspect shard (aspects [a_off, a_off + A) of a_total), this
+    shard's share of the whole table's output: the shards' outputs sum to
+    it."""
+    if not isinstance(seed, torch.Tensor):
+        seed = tuple(int(s) for s in seed)
     a_total, a_off = _span(w, a_total, a_off)
     if torch.is_grad_enabled() and (w.requires_grad or asp.requires_grad):
         return _AspectDropoutMean.apply(w, asp, seed, keep, a_total, a_off)

@@ -67,8 +67,7 @@ def save_checkpoint(path: str, cfg: Config, model: nn.Module,
     opt_state = None
     if optimizer is not None:
         # its tensors stay where they are; load_checkpoint maps them to CPU
-        opt_state = (full_optimizer_state(optimizer, model) if sharded
-                     else optimizer.state_dict())
+        opt_state = full_optimizer_state(optimizer, model)
     if not write:
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

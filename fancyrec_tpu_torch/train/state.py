@@ -113,8 +113,12 @@ def shard_optimizer_state(saved: dict, model: torch.nn.Module) -> dict:
 def full_optimizer_state(opt: torch.optim.Optimizer, model: torch.nn.Module
                          ) -> dict:
     """opt's state_dict with each moment of a split parameter gathered over
-    the model group: a collective, which every model rank calls."""
+    the model group (a collective, which every model rank calls), in the
+    form `make_optimizer` gives it: a float lr and `capturable` off, also
+    after `make_capturable`."""
     state = opt.state_dict()
+    state["param_groups"] = [dict(g, lr=float(g["lr"]), capturable=False)
+                             for g in state["param_groups"]]
     if getattr(model, "mesh", None) is None:
         return state
     return dict(state, state=_moments(model, state["state"], True, join))
@@ -157,13 +161,42 @@ def load_optimizer_state(opt: torch.optim.Optimizer, model: torch.nn.Module,
 
 
 def current_lr(opt: torch.optim.Optimizer) -> float:
+    """The lr as a float (a device lr is read back: it waits for the
+    device)."""
     return float(opt.param_groups[0]["lr"])
 
 
 def scale_lr(opt: torch.optim.Optimizer, factor: float) -> None:
-    """Multiplicative lr decay, in place on every param group."""
+    """Multiplicative lr decay on every param group: a float lr replaced,
+    a tensor lr (`make_capturable`) scaled in place, so that a captured
+    optimizer step reads the new lr."""
     for group in opt.param_groups:
-        group["lr"] = group["lr"] * factor
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].mul_(factor)
+        else:
+            group["lr"] = group["lr"] * factor
+
+
+def make_capturable(opt: torch.optim.Optimizer, device: torch.device
+                    ) -> None:
+    """Ready `opt` (Adam or RMSprop) for a CUDA graph capture of its step,
+    in place: `capturable` on, so that the bias corrections read the step
+    counts on the device, the step counts moved there, and each group's lr
+    a float32 tensor on `device`, which `scale_lr` scales in place (a
+    float lr would be baked into the graph). Its update differs from the
+    one without only by rounding: the bias corrections are applied in
+    another order."""
+    for group in opt.param_groups:
+        group["capturable"] = True
+        if not (isinstance(group["lr"], torch.Tensor)
+                and group["lr"].device == device):
+            group["lr"] = torch.tensor(float(group["lr"]),
+                                       dtype=torch.float32, device=device)
+    for st in opt.state.values():
+        if "step" in st:
+            st["step"] = st["step"].to(device=device, dtype=torch.float32)
+    # the first update of each signature runs eagerly before its capture
+    opt._warned_capturable_if_run_uncaptured = True
 
 
 def init_state(cfg: Config, device, seed: int = None, mesh: Mesh = None):

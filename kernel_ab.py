@@ -464,6 +464,7 @@ def k2(dev, base_lib, params, results):
         bits = torch.empty((b, a, -(-c // 32)), dtype=torch.int32,
                            device=dev)
         scratch = torch.empty(plan.scratch_floats, device=dev)
+        key = bd.key_words(cs.K2_SEED, dev)
         fwd, bwd = lib.aspect_dropout_fwd, lib.aspect_dropout_bwd
         for fn in (fwd, bwd):
             fn.restype = ctypes.c_int
@@ -473,13 +474,20 @@ def k2(dev, base_lib, params, results):
                             + [ctypes.c_float, ctypes.c_void_p])
             fwd_args = (w.data_ptr(), asp.data_ptr(), out.data_ptr(), b, a, c,
                         s0, s1, thr, scale, stream)
+        elif n_fwd in (16, 18):         # the seed words as arguments; 16:
+            shard = (a, 0) if n_fwd == 18 else ()   # no A_total, a_off
+            fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                            + [ctypes.c_int] * (3 + len(shard) + 2)
+                            + [ctypes.c_uint] * 3
+                            + [ctypes.c_float, ctypes.c_void_p])
+            fwd_args = ((w.data_ptr(), asp.data_ptr(), out.data_ptr(),
+                         bits.data_ptr(), scratch.data_ptr(),
+                         plan.scratch_floats, b, a, c) + shard
+                        + (plan.splits, plan.span, s0, s1, thr, scale, stream))
         else:
             fwd_args = bd.aspect_dropout_fwd_args(
-                w, asp, out, bits, scratch, cs.K2_SEED, cs.KEEP, plan)
-            fwd.argtypes = list(bd._fwd_fn().argtypes)
-            if n_fwd == 16:             # no A_total, a_off (args 9 and 10)
-                fwd_args = fwd_args[:9] + fwd_args[11:]
-                del fwd.argtypes[9:11]
+                w, asp, out, bits, scratch, key, cs.KEEP, plan)
+            fwd.argtypes = bd._fwd_fn().argtypes
         if n_bwd == 13:
             bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                             + [ctypes.c_uint] * 3
@@ -494,7 +502,7 @@ def k2(dev, base_lib, params, results):
         if fwd(*fwd_args) or bwd(*bwd_args):
             fail("an aspect_dropout C entry failed")
         return (lambda: fwd(*fwd_args), lambda: bwd(*bwd_args),
-                (out, dw, dasp, bits, scratch))
+                (out, dw, dasp, bits, scratch, key))
 
     for b in (cs.B_TRAIN, 128):
         g = torch.Generator(device=dev).manual_seed(cs.SEED + 4)
@@ -509,7 +517,7 @@ def k2(dev, base_lib, params, results):
             for side, lib, n_fwd, n_bwd in (
                     ("base", base_lib, params["aspect_dropout_fwd"],
                      params["aspect_dropout_bwd"]),
-                    ("this", _build.load("aspect_dropout"), 18, 12)):
+                    ("this", _build.load("aspect_dropout"), 17, 12)):
                 fwd, bwd, bufs = entries(lib, n_fwd, n_bwd, w, asp, gr)
                 out, dw, dasp = bufs[:3]
                 torch.cuda.synchronize()
