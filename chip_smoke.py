@@ -27,7 +27,11 @@ Phases:
      on the card as on the CPU; then the throughput mode's shapes: K1 in
      float32 at B=64 (its training path), K1 in bfloat16 at B=64 (forward
      and backward) and B=128 (forward), which no main path runs, each
-     beside cuDNN's GRU in the same dtype, and K2 at B=64;
+     beside cuDNN's GRU in the same dtype, and K2 at B=64; K5 (the routed
+     experts' grouped GEMMs, forward and backward) at the dsv2.train
+     cell's shape and at ragged edges, and replayed from a CUDA graph over
+     new segment offsets, logged on a line of its own (no phase here runs
+     its path);
   4. serving, at the full width of the recipe model (bin/instance.sh)
      with random weights from a seed: build an index of a synthetic
      collection through `fancyrec_tpu_torch.serving.index build`, append
@@ -185,6 +189,7 @@ CUDA device, or without the package beside this script, it exits
 non-zero before printing any result.
 """
 
+import itertools
 import json
 import math
 import os
@@ -239,6 +244,8 @@ K2_TOL = 1e-5     # float32 sums over 2000 aspects or 1024 columns; a single
                   # dropped element moves an output by |w asp|/1000 ~ 1e-3
 K3_TOL = 1e-6     # the same float32 products; only the sort differs
 K3_QTOL = 1e-6    # relative: the brand scale is rsqrtf of the same exact sum
+K5_TOL = 1e-4     # float32 sums over D=2048 or 2F=2816 rows of products in
+                  # another order than cuBLAS's, relative to the largest
 K4_TOL = 2e-5     # float32 sums over D=1024 in another order; the JAX
                   # package's tolerance for its kernel (test_similarity_ops)
 N_EVAL = N_BRANDS * (TRAIN_VIDEOS_PER_BRAND + TRAIN_IMGS_PER_BRAND)  # test
@@ -644,6 +651,160 @@ def check_cosine(dev):
             "replaces": "fancyrec_tpu/ops/similarity.py:108",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roofline(nbytes, ops, F32_FLOPS), "library_ms": library_ms}
+
+
+def _moe_case(g, dev, e, d, f, counts, pads):
+    """Rows sorted by expert (`counts` a segment, then `pads` pad rows),
+    weights at DeepSeek-V2's std of 0.02, and the offsets."""
+    import torch
+    r = sum(counts) + pads
+    off = torch.tensor([0] + list(itertools.accumulate(counts)),
+                       dtype=torch.int64, device=dev)
+    xs = torch.randn(r, d, generator=g, device=dev)
+    w13 = torch.randn(e, 2 * f, d, generator=g, device=dev) * 0.02
+    w2 = torch.randn(e, d, f, generator=g, device=dev) * 0.02
+    dys = torch.randn(r, d, generator=g, device=dev)
+    dys[sum(counts):] = 0.0
+    return xs, off, w13, w2, dys
+
+
+def _moe_pass(fns, xs, off, w13, w2, dys, dw13, dw2):
+    """K5's forward and backward through `fns` (the kernels or the plain
+    versions): -> (ys, dxs), dW added into dw13, dw2."""
+    from fancyrec_tpu_torch.ops import moe
+    rows, wgrad = fns
+    gu, act = rows(xs, w13, off, moe.NT_SWIGLU)
+    ys = rows(act, w2, off, moe.NT_STORE)
+    dgu = rows(dys, w2, off, moe.NN_DSWIGLU, gu)
+    dxs = rows(dgu, w13, off, moe.NN_STORE)
+    wgrad(dys, act, off, dw2)
+    wgrad(dgu, xs, off, dw13)
+    return ys, dxs
+
+
+def _moe_err(got, want):
+    """max |kernel - plain| over max |plain|, each output in turn."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
+
+
+def check_moe(dev):
+    """K5 against its plain version, forward and backward (dW added into a
+    gradient that already holds a value), at the dsv2.train cell's shapes
+    (64 experts of 1408 at D=2048, a microbatch's 8 x 128 tokens x 6 slots,
+    about 51 rows an expert) and at ragged edges (empty experts, one expert
+    holding every row, segments that are not whole tiles, no pad rows);
+    two calls give the same bits; a CUDA graph captured over one routing
+    and replayed over another gives the eager call's bits. Then the times
+    at the cell's shape against the bound. Its main path is the DeepSeek-V2
+    caption tower, which the benchmark's dsv2.train cell runs."""
+    import torch
+    from fancyrec_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    kernel = (moe.moe_rows_cuda, moe.moe_wgrad_cuda)
+    plain = (moe.moe_rows_ref, moe.moe_wgrad_ref)
+    edges = [(3, 32, 8, [0, 130, 5], 7), (4, 64, 16, [0, 0, 0, 70], 0),
+             (5, 48, 24, [1, 64, 65, 0, 127], 64), (2, 16, 4, [0, 0], 9)]
+    for e, d, f, counts, pads in edges:
+        case = _moe_case(g, dev, e, d, f, counts, pads)
+        xs, off, w13, w2, dys = case
+        start = [torch.randn(e, 2 * f, d, generator=g, device=dev),
+                 torch.randn(e, d, f, generator=g, device=dev)]
+        outs = {}
+        for name, fns in (("kernel", kernel), ("plain", plain),
+                          ("again", kernel)):
+            dws = [t.clone() for t in start]
+            ys, dxs = _moe_pass(fns, *case, *dws)
+            outs[name] = (ys, dxs, *dws)
+        torch.cuda.synchronize()
+        err = _moe_err(outs["kernel"], outs["plain"])
+        same = all(torch.equal(a, b)
+                   for a, b in zip(outs["kernel"], outs["again"]))
+        zero = (not outs["kernel"][0][sum(counts):].any()
+                and not outs["kernel"][1][sum(counts):].any())
+        if not (err <= K5_TOL and same and zero):
+            fail("moe_gemm E=%d D=%d F=%d rows %s + %d pads: relative err "
+                 "%.3g (> %g?), two calls equal: %s, pad rows zero: %s"
+                 % (e, d, f, counts, pads, err, K5_TOL, same, zero))
+    # the cell's shape: about 51 rows an expert (544 of 1024 tokens valid)
+    e, d, f, k, n_tok, n_valid = 64, 2048, 1408, 6, 1024, 544
+    shares = torch.rand(e, generator=g, device=dev).cpu() + 0.5
+    counts = (shares / shares.sum() * n_valid * k).floor().long()
+    counts[0] += n_valid * k - int(counts.sum())
+    counts[5] = 0                                   # one expert left out
+    counts[6] += n_valid * k - int(counts.sum())
+    case = _moe_case(g, dev, e, d, f, counts.tolist(), (n_tok - n_valid) * k)
+    xs, off, w13, w2, dys = case
+    dws = [torch.zeros_like(w13), torch.zeros_like(w2)]
+    got = _moe_pass(kernel, *case, *dws) + tuple(dws)
+    dws_p = [torch.zeros_like(w13), torch.zeros_like(w2)]
+    want = _moe_pass(plain, *case, *dws_p) + tuple(dws_p)
+    torch.cuda.synchronize()
+    err = _moe_err(got, want)
+    log("moe_gemm at E=%d D=%d F=%d, %d rows (%d valid): relative err %.3g "
+        "(tolerance %g)" % (e, d, f, xs.shape[0], n_valid * k, err, K5_TOL))
+    if not err <= K5_TOL:
+        fail("moe_gemm disagrees with its plain version at the cell's shape")
+    # capture over this routing, replay over another: the eager bits
+    other = counts.roll(7)
+    off2 = torch.tensor([0] + list(itertools.accumulate(other.tolist())),
+                        dtype=torch.int64, device=dev)
+    gdw = [torch.zeros_like(w13), torch.zeros_like(w2)]
+    off_in = off.clone()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _moe_pass(kernel, xs, off_in, w13, w2, dys, *gdw)   # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            g_out = _moe_pass(kernel, xs, off_in, w13, w2, dys, *gdw)
+    torch.cuda.current_stream().wait_stream(stream)
+    for dw in gdw:
+        dw.zero_()
+    off_in.copy_(off2)
+    graph.replay()
+    edw = [torch.zeros_like(w13), torch.zeros_like(w2)]
+    e_out = _moe_pass(kernel, xs, off2, w13, w2, dys, *edw)
+    torch.cuda.synchronize()
+    replayed = all(torch.equal(a, b) for a, b in
+                   zip(tuple(g_out) + tuple(gdw), tuple(e_out) + tuple(edw)))
+    if not replayed:
+        fail("moe_gemm replayed from a CUDA graph over new offsets differs "
+             "from the eager call")
+    del graph, g_out, e_out, gdw, edw, dws_p, want
+    rows = n_valid * k
+    # operations: gate/up, down forward, each twice backward (dX, dW);
+    # bytes: the experts' weights read forward and for dX, their gradients
+    # read and written by dW, and each launch's rows in and out
+    ops = 18 * rows * d * f
+    nbytes = 4 * (4 * e * 3 * f * d + rows * (7 * d + 13 * f))
+    kernel_dws = [torch.zeros_like(w13), torch.zeros_like(w2)]
+    ms = cuda_ms(lambda: _moe_pass(kernel, *case, *kernel_dws), 20)
+    fwd_ms = cuda_ms(lambda: _moe_pass_fwd(kernel, xs, off, w13, w2), 20)
+    # the plain version is a loop of cuBLAS float32 matmuls over experts
+    plain_ms = cuda_ms(lambda: _moe_pass(plain, *case, *kernel_dws), 3)
+    rec = {"name": "moe_gemm", "route": "cuda",
+           "source": "fancyrec_tpu_torch/csrc/moe_gemm.cu",
+           "replaces": "none (the JAX package has no routed layer)",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "forward_ms": fwd_ms, "launches": 6, "shape": [e, d, f, rows],
+           **roofline(nbytes, ops, F32_FLOPS)}
+    log("moe_gemm at the cell's shape (E=%d, D=%d, F=%d, %d rows): forward "
+        "and backward %.3f ms (forward %.3f), 6 launches; plain %.3f ms; "
+        "bound %.3f ms (%s); %.1f%% of the bound"
+        % (e, d, f, rows, ms, fwd_ms, plain_ms, rec["bound_ms"],
+           rec["bound_by"], 100.0 * rec["bound_ms"] / ms))
+    del case, xs, w13, w2, dys, kernel_dws, dws
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_pass_fwd(fns, xs, off, w13, w2):
+    from fancyrec_tpu_torch.ops import moe
+    rows = fns[0]
+    _, act = rows(xs, w13, off, moe.NT_SWIGLU)
+    return rows(act, w2, off, moe.NT_STORE)
 
 
 def cosine_entry_ms(brands, posts):
@@ -4899,7 +5060,7 @@ def main():
     # 2. build
     t0 = time.time()
     reports = _build.build(["gru_scan", "topk_int8", "aspect_dropout",
-                            "cosine_scores"])
+                            "cosine_scores", "moe_gemm"])
     log("kernels built in %.1f s" % (time.time() - t0))
     for name, rep in reports.items():
         for fn, line in ptxas_lines(rep):
@@ -4912,6 +5073,7 @@ def main():
     kernels = [check_gru(dev), check_topk(dev), gru_bwd] + k2 + [
         check_cosine(dev)]
     check_edges(dev)
+    k5 = check_moe(dev)
     torch.cuda.empty_cache()
     # the throughput mode's shapes: K1 (float32 on its path; bfloat16 off
     # it) and K2 at batch 64
@@ -5107,6 +5269,12 @@ def main():
                                                "shape", "a_off"))
          for r in tp["m4"]], allow_nan=False))
 
+    # K5's main path is the DeepSeek-V2 caption tower, which no phase here
+    # trains (the benchmark's dsv2.train cell does): checked, on a line of
+    # its own
+    log("K5 on the DeepSeek-V2 caption tower's path (no phase here): %s"
+        % json.dumps(json_record(k5, keys + ("forward_ms", "shape")),
+                     allow_nan=False))
     log("the whole script in %.1f s; by phase (s): %s"
         % (time.time() - t_script, json.dumps(spans)))
     # the contract's keys, then, where a record has them, its C entry's time

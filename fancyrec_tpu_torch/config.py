@@ -4,9 +4,12 @@ The same dataclass and the same JSON form as `fancyrec_tpu.config`, so a
 config written by either package loads in the other. `mesh_shape` lays
 the ranks of a world out as the (data, model) mesh (`parallel/mesh.py`);
 `seq_shard` and `pp_stages` shard the time axes and pipeline BERT over
-its model axis. The fields that only steer JAX (the XLA compile cache,
-the dropout PRNG) are kept for that interchange, and the training CLI
-refuses them at any value but their default.
+its model axis. The port adds one field the JAX package lacks:
+`text_tower`, the published config.json keys of a DeepSeek-V2 caption
+tower (`--text_net deepseek_v2`, `models/deepseek_v2.py`; keys left out
+take DeepSeek-V2-Lite's values). The fields that only steer JAX (the XLA
+compile cache, the dropout PRNG) are kept for that interchange, and the
+training CLI refuses them at any value but their default.
 """
 
 from __future__ import annotations
@@ -55,7 +58,9 @@ class Config:
     text_kernel_sizes: str = "2-3-4"
     text_norm: bool = False
     text_transformers_hidden_size: int = 768
-    text_net: str = "transformers"  # bi-gru|transformers
+    text_net: str = "transformers"  # bi-gru|transformers|deepseek_v2
+    # deepseek_v2: its config.json keys (port only; see the module doc)
+    text_tower: dict = field(default_factory=dict)
     # BERT architecture knobs (bert-base-uncased defaults; the reference
     # hardcodes BertConfig(num_hidden_layers=3, num_attention_heads=12)
     # over bert-base, model.py:317)
@@ -209,7 +214,9 @@ class Config:
             if bs[-1] != cap:
                 bs.append(cap)   # always cover the static max
             return bs
-        tok_cap = (self.max_tokens if self.text_net == "transformers"
+        if self.text_net == "deepseek_v2":
+            self._refuse_for_deepseek()
+        tok_cap = (self.max_tokens if uses_wordpiece(self.text_net)
                    else self.max_words)
         self.token_buckets_list = _buckets(
             self.token_buckets, tok_cap, "--token_buckets")
@@ -265,30 +272,31 @@ class Config:
         self.visual_kernel_sizes_list = [int(x) for x in str(self.visual_kernel_sizes).split("-")]
         tks = self.text_kernel_num * len(self.text_kernel_sizes_list)
         vks = self.visual_kernel_num * len(self.visual_kernel_sizes_list)
+        tf_hidden = (self.tower_config().hidden_size
+                     if self.text_net == "deepseek_v2"
+                     else self.text_transformers_hidden_size)
 
         if self.concate == "full":
             if self.text_net == "bi-gru":
                 self.text_mapping_in = self.bow_vocab_size + self.text_rnn_size * 2 + tks
-            elif self.text_net == "transformers":
-                self.text_mapping_in = (
-                    self.bow_vocab_size + self.text_transformers_hidden_size + tks)
+            elif uses_wordpiece(self.text_net):
+                self.text_mapping_in = self.bow_vocab_size + tf_hidden + tks
             self.visual_mapping_in = (
                 self.visual_feat_dim * 2 + self.visual_rnn_size * 2 + vks)
         elif self.concate == "reduced":
             if self.text_net == "bi-gru":
                 self.text_mapping_in = 1024
-            elif self.text_net == "transformers":
+            elif uses_wordpiece(self.text_net):
                 widths = {
-                    "1+2": self.bow_vocab_size + self.text_transformers_hidden_size,
+                    "1+2": self.bow_vocab_size + tf_hidden,
                     "1+3": self.bow_vocab_size + tks,
-                    "2+3": self.text_transformers_hidden_size + tks,
+                    "2+3": tf_hidden + tks,
                     "1": self.bow_vocab_size,
-                    "2": self.text_transformers_hidden_size,
+                    "2": tf_hidden,
                     "3": tks,
                 }
                 self.text_mapping_in = widths.get(
-                    self.level_txt,
-                    self.bow_vocab_size + self.text_transformers_hidden_size + tks)
+                    self.level_txt, self.bow_vocab_size + tf_hidden + tks)
             vwidths = {
                 "1+2": self.visual_feat_dim * 2 + self.visual_rnn_size * 2,
                 "1+3": self.visual_feat_dim * 2 + vks,
@@ -304,9 +312,41 @@ class Config:
             raise NotImplementedError("Unknown concate method: %s" % self.concate)
         return self
 
+    def tower_config(self):
+        """The DeepSeek-V2 tower's `models.deepseek_v2.DeepseekV2Config`:
+        `text_tower` over DeepSeek-V2-Lite's published values."""
+        from fancyrec_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+        return DeepseekV2Config.from_dict(self.text_tower)
+
+    def _refuse_for_deepseek(self) -> None:
+        """What the deepseek_v2 tower does not run yet: K5 computes in
+        float32 only, and the tower is neither pipelined, sequence-sharded
+        nor split over a model axis."""
+        self.tower_config()
+        refused = []
+        if self.pp_stages and self.pp_stages > 1:
+            refused.append("--pp_stages %d" % self.pp_stages)
+        if self.seq_shard:
+            refused.append("--seq_shard")
+        if (parse_mesh_shape(self.mesh_shape) or (1, 1))[1] > 1:
+            refused.append("--mesh_shape %s (a model axis)" % self.mesh_shape)
+        if self.dtype not in ("", "float32"):
+            refused.append("--dtype %s" % self.dtype)
+        if self.bert_remat:
+            refused.append("--bert_remat")
+        if refused:
+            raise NotImplementedError(
+                "--text_net deepseek_v2 does not support %s"
+                % ", ".join(refused))
+
     # ------------------------------------------------------------------
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        """The JSON form; without a DeepSeek-V2 tower, the JAX package's
+        form exactly (no `text_tower` key)."""
+        data = dataclasses.asdict(self)
+        if not data["text_tower"]:
+            del data["text_tower"]
+        return json.dumps(data, indent=2)
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
@@ -353,6 +393,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--text_transformers_hidden_size", type=int,
                    default=d.text_transformers_hidden_size)
     p.add_argument("--text_net", type=str, default=d.text_net)
+    p.add_argument("--text_tower", type=str, default="",
+                   help="deepseek_v2: a config.json (path or JSON text) "
+                        "over DeepSeek-V2-Lite's")
     p.add_argument("--video_feature", type=str, default=d.video_feature)
     p.add_argument("--img_feature", type=str, default=d.img_feature)
     p.add_argument("--visual_rnn_size", type=int, default=d.visual_rnn_size)
@@ -445,5 +488,22 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 "--%s is not implemented by the PyTorch port (got %r): %s"
                 % (flag, vals[flag], why))
     parse_mesh_shape(vals.get("mesh_shape", ""))
+    vals["text_tower"] = load_tower(vals.get("text_tower", ""))
     known = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in vals.items() if k in known})
+
+
+def load_tower(spec: str) -> dict:
+    """--text_tower: JSON text or the path of a JSON file; "" is {}
+    (DeepSeek-V2-Lite as published)."""
+    if not spec:
+        return {}
+    if spec.lstrip().startswith("{"):
+        return json.loads(spec)
+    with open(spec) as f:
+        return json.load(f)
+
+
+def uses_wordpiece(text_net: str) -> bool:
+    """Does the text tower read WordPiece ids (BERT's token path)?"""
+    return text_net in ("transformers", "deepseek_v2")

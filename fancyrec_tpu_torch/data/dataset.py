@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from fancyrec_tpu_torch.config import uses_wordpiece
 from fancyrec_tpu_torch.io.bigfile import BigFileReader
 from fancyrec_tpu_torch.io.dictfile import get_visual_id, read_dict
 from fancyrec_tpu_torch.io.vocab import Bow2Vec, Vocabulary, clean_str
@@ -136,7 +137,7 @@ class PostDataset:
         self._bow_dim = self.bow2vec.ndims if self.bow2vec else 0
         self._bow_idx: List[np.ndarray] = []
         self._bow_val: List[np.ndarray] = []
-        if self.text_net == "transformers":
+        if uses_wordpiece(self.text_net):
             self._tok_cache = np.zeros((n, max_tokens), np.int32)
             self._tmask_cache = np.zeros((n, max_tokens), np.int32)
         else:
@@ -157,7 +158,7 @@ class PostDataset:
             else:
                 self._bow_idx.append(np.zeros(0, np.int32))
                 self._bow_val.append(np.zeros(0, np.float32))
-            if self.text_net == "transformers":
+            if uses_wordpiece(self.text_net):
                 # collate_frame_transformers_fn sorts by len of the cleaned
                 # caption string handed to the tokenizer
                 # (data_provider.py:28-29,267-269)

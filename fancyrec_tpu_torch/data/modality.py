@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from fancyrec_tpu_torch.config import uses_wordpiece
 from fancyrec_tpu_torch.data.dataset import CaptionSet
 from fancyrec_tpu_torch.data.tokenizer import WordPieceTokenizer
 from fancyrec_tpu_torch.io.bigfile import BigFileReader
@@ -97,7 +98,7 @@ class TxtDataset:
         self.text_net = text_net
         self._bow_dim = bow2vec.ndims if bow2vec else 0
         n = len(self.caps)
-        width = max_tokens if text_net == "transformers" else max_words
+        width = max_tokens if uses_wordpiece(text_net) else max_words
         self._bows = np.zeros((n, self._bow_dim), np.float32)
         self._tokens = np.zeros((n, width), np.int32)
         self._tmask = np.zeros((n, width), np.int32)
@@ -108,7 +109,7 @@ class TxtDataset:
                 if vec is not None:
                     self._bows[i] = vec
             toks = clean_str(cap)
-            if text_net == "transformers":
+            if uses_wordpiece(text_net):
                 ids = tokenizer.encode(" ".join(toks), max_length=max_tokens)
             else:
                 ids = ([rnn_vocab("<start>")] + [rnn_vocab(t) for t in toks]

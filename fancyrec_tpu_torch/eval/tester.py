@@ -32,7 +32,7 @@ import logging
 import os
 import sys
 
-from fancyrec_tpu_torch.config import Config
+from fancyrec_tpu_torch.config import Config, uses_wordpiece
 from fancyrec_tpu_torch.data.dataset import PostDataset, load_info
 from fancyrec_tpu_torch.data.loader import BatchLoader
 from fancyrec_tpu_torch.data.tokenizer import WordPieceTokenizer
@@ -138,7 +138,7 @@ def main(argv=None):
     cfg.finalize()
 
     tokenizer = None
-    if cfg.text_net == "transformers":
+    if uses_wordpiece(cfg.text_net):
         tokenizer = WordPieceTokenizer(opt.bert_vocab or cfg.bert_vocab
                                        or os.path.join(root, "bert_vocab.txt"))
 

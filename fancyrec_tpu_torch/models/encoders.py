@@ -41,6 +41,8 @@ import torch
 from torch import nn
 
 from fancyrec_tpu_torch.models.bert import BertConfig, BertEncoder
+from fancyrec_tpu_torch.models.deepseek_v2 import (
+    DeepseekV2Config, DeepseekV2Tower)
 from fancyrec_tpu_torch.models.gru import BiGRU
 from fancyrec_tpu_torch.models.layers import (
     MFC, AttentionPool, ConvBank, Dropout, batch_max_len, l2norm,
@@ -170,24 +172,35 @@ class TextGruEncoder(nn.Module):
 
 class TextTransformersEncoder(nn.Module):
     """Transformer text tower (the recipe). level 1: BoW; level 2: masked
-    mean of BERT's last hidden states; level 3: conv bank over the last
-    hidden states, zeroed only beyond the batch-max token count (the
-    reference convolves pad-token outputs inside the batch max)."""
+    mean of the tower's last hidden states; level 3: conv bank over the
+    last hidden states, zeroed only beyond the batch-max token count (the
+    reference convolves pad-token outputs inside the batch max).
 
-    def __init__(self, bert: BertConfig, kernel_num: int,
+    The tower is BERT (`bert`), or, with `deepseek`, DeepSeek-V2's
+    decoder blocks (`models.deepseek_v2`), whose pad tokens' states are
+    zeroed before the pooling; both share the pooling, the conv bank and
+    the mapping."""
+
+    def __init__(self, bert: Optional[BertConfig], kernel_num: int,
                  kernel_sizes: Sequence[int], mapping_in: int,
                  mapping_out: int, concate: str = "full",
                  level: str = "1+2+3", norm: bool = False,
                  dropout: float = 0.2, attn_fusion: bool = False,
                  dtype: torch.dtype = torch.float32, mapping_shard=None,
                  ffn_shard=None, seq_shard: bool = False,
-                 pp: bool = False):
+                 pp: bool = False,
+                 deepseek: Optional[DeepseekV2Config] = None):
         super().__init__()
         self.concate, self.level, self.norm = concate, level, norm
         self.seq_shard, self.pp = seq_shard, pp
-        self.bert = BertEncoder(bert, ffn_shard)
-        self.convs = ConvBank(bert.hidden_size, kernel_num, kernel_sizes,
-                              dtype)
+        if deepseek is None:
+            self.bert = BertEncoder(bert, ffn_shard)
+            self.deepseek = None
+            hidden = bert.hidden_size
+        else:
+            self.deepseek = DeepseekV2Tower(deepseek)
+            hidden = deepseek.hidden_size
+        self.convs = ConvBank(hidden, kernel_num, kernel_sizes, dtype)
         self.text_mapping = (None if attn_fusion else MFC(
             mapping_in, mapping_out, dropout, dtype, mapping_shard))
         self.con_drop = Dropout(dropout)
@@ -195,7 +208,10 @@ class TextTransformersEncoder(nn.Module):
     def forward(self, t: TextBatch):
         mask = t.mask
         bl = _batch_len(mask, t.max_len)
-        if self.pp:
+        if self.deepseek is not None:
+            last_hidden = self.deepseek(t.tokens, mask) * mask[..., None].to(
+                torch.float32)
+        elif self.pp:
             last_hidden = bert_pipeline_forward(self.bert, t.tokens,
                                                 t.type_ids, mask)
         else:

@@ -116,6 +116,16 @@ class FancyRec(nn.Module):
                                else part(cfg.bert_intermediate_size)),
                     seq_shard=cfg.seq_shard,
                     pp=self.pp)
+            elif cfg.text_net == "deepseek_v2":
+                self.text_encoding = TextTransformersEncoder(
+                    bert=None, kernel_num=cfg.text_kernel_num,
+                    kernel_sizes=cfg.text_kernel_sizes_list,
+                    mapping_in=cfg.text_mapping_in,
+                    mapping_out=cfg.text_mapping_size, concate=cfg.concate,
+                    level=cfg.level_txt, norm=cfg.text_norm,
+                    dropout=cfg.dropout, attn_fusion=attn_fusion,
+                    dtype=dtype, mapping_shard=part(cfg.text_mapping_in),
+                    deepseek=cfg.tower_config())
             else:
                 raise ValueError("unknown text_net: %s" % cfg.text_net)
         if not (cfg.single_modal_visual or cfg.single_modal_text):
@@ -174,6 +184,20 @@ class FancyRec(nn.Module):
             seed + 1)
         return self
 
+    def text_tower(self):
+        """The DeepSeek-V2 caption tower, or None."""
+        enc = getattr(self, "text_encoding", None)
+        return getattr(enc, "deepseek", None)
+
+    def take_aux_loss(self) -> Optional[torch.Tensor]:
+        """The balance loss the last training forward left (the DeepSeek-V2
+        tower's MoE layers), handed over once; None for other towers."""
+        tower = self.text_tower()
+        if tower is None:
+            return None
+        aux, tower.aux_loss = tower.aux_loss, None
+        return aux
+
     def embed_brand(self, brand_ids: torch.Tensor) -> torch.Tensor:
         """Mean over the aspect axis of the brand's weighted aspects."""
         return self.brand_encoding(brand_ids)
@@ -203,8 +227,8 @@ class FancyRec(nn.Module):
 def init_fancyrec(model: FancyRec, generator: torch.Generator) -> FancyRec:
     """Random weights drawn from `generator`, with the JAX package's
     initializers: xavier-uniform mappings, fusion and attention pool;
-    normal(0.02) BERT; normal(1) brand tables; U(+-1/sqrt(H)) GRU;
-    lecun-normal conv kernels; U(+-0.1) word embeddings; zero biases,
+    normal(0.02) BERT and DeepSeek-V2 (its norms one); normal(1) brand
+    tables; U(+-1/sqrt(H)) GRU; lecun-normal conv kernels; U(+-0.1) word embeddings; zero biases,
     unit norms. The 'attn' fusion keeps the reference's torch defaults:
     U(-1, 1) attention vectors (a Linear of fan-in 1), a zero bias b, and
     U(+-1/sqrt(fan_in)) weights and biases in its two Linears. The numbers
@@ -223,6 +247,12 @@ def init_fancyrec(model: FancyRec, generator: torch.Generator) -> FancyRec:
                     bound = 1.0 / math.sqrt(getattr(
                         model.fusion_encoding, name.split(".")[1]).in_features)
                 p.uniform_(-bound, bound, generator=g)
+            elif ".deepseek." in name:
+                # DeepSeek-V2's initializer_range; its norms start at one
+                if p.dim() == 1:
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02, generator=g)
             elif name.startswith("brand_encoding."):
                 p.normal_(0.0, 1.0, generator=g)
             elif ".rnn." in name:                  # every shape is (3H, ...)

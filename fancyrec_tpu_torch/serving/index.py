@@ -55,6 +55,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from fancyrec_tpu_torch.config import uses_wordpiece
 from fancyrec_tpu_torch.device import resolve_device
 from fancyrec_tpu_torch.io.bigfile import BigFileReader, BigFileWriter
 from fancyrec_tpu_torch.ops.similarity import (
@@ -89,7 +90,7 @@ def load_collection(ckpt, rootpath: str, collection: str,
     cfg.vocab_size = len(rnn_vocab)
     cfg.finalize()
     tokenizer = None
-    if cfg.text_net == "transformers":
+    if uses_wordpiece(cfg.text_net):
         tokenizer = WordPieceTokenizer(
             bert_vocab or cfg.bert_vocab
             or os.path.join(rootpath, "bert_vocab.txt"))

@@ -61,7 +61,8 @@ def micro_loss(model, cfg: Config, queue, mb: Dict[str, torch.Tensor]):
     Arrays staged in bfloat16 (--transfer_dtype) are upcast to float32 on
     the device first. In a world, mb holds this rank's rows plus the
     global batch-max lengths ('flen_max', 'tlen_max'), and the loss is
-    the global microbatch's."""
+    the global microbatch's. A DeepSeek-V2 caption tower's balance loss
+    (`FancyRec.take_aux_loss`) joins it."""
     mb = {k: v.float() if v.dtype == torch.bfloat16 else v
           for k, v in mb.items()}
     v = VisualBatch(frames=mb["frames"], mean_origin=mb["origin"],
@@ -70,6 +71,15 @@ def micro_loss(model, cfg: Config, queue, mb: Dict[str, torch.Tensor]):
                   type_ids=mb["type_ids"].long(), mask=mb["tmask"],
                   max_len=mb.get("tlen_max"))
     brand_emb, post_emb = model(mb["brand_ids"].long(), v, t)
+    loss, queue = _recipe_loss(cfg, queue, mb, brand_emb, post_emb)
+    aux = model.take_aux_loss()
+    if aux is not None:
+        # the rank's rows' balance loss, a 1/R share of the global batch's
+        loss = loss + aux / collectives.data_size()
+    return loss, queue
+
+
+def _recipe_loss(cfg: Config, queue, mb, brand_emb, post_emb):
     brand_emb = collectives.all_gather(brand_emb)
     post_emb = collectives.all_gather(post_emb)
     brand_ids = collectives.all_gather(mb["brand_ids"].long())

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from fancyrec_tpu_torch.config import (
-    Config, build_train_parser, config_from_args)
+    Config, build_train_parser, config_from_args, uses_wordpiece)
 from fancyrec_tpu_torch.data.dataset import PostDataset, load_info
 from fancyrec_tpu_torch.data.loader import (
     BatchLoader, bucket_batch, prefetch_to_device)
@@ -107,12 +107,12 @@ def build_datasets(cfg: Config) -> Dict[str, PostDataset]:
     cfg.vocab_size = len(rnn_vocab)
     bow2vec = Bow2Vec(bow_vocab)
     tokenizer = None
-    if cfg.text_net == "transformers":
+    if uses_wordpiece(cfg.text_net):
         vocab_path = cfg.bert_vocab or os.path.join(root, "bert_vocab.txt")
         if not os.path.exists(vocab_path):
             raise FileNotFoundError(
-                "transformers text_net needs a WordPiece vocab: pass "
-                "--bert_vocab or place bert_vocab.txt under rootpath")
+                "%s text_net needs a WordPiece vocab: pass --bert_vocab or "
+                "place bert_vocab.txt under rootpath" % cfg.text_net)
         tokenizer = WordPieceTokenizer(vocab_path)
     img_info, cls_info = load_info(root)
     datasets = {}
@@ -204,9 +204,14 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
     the device runs the current step; every collective stays on this
     thread. "posts" counts the global batches' posts. The read of the
     losses that ends the epoch, which waits for the device, is the span
-    `train.loss_read`."""
+    `train.loss_read`. With a DeepSeek-V2 caption tower the stats also
+    hold "routing": its MoE layers' rows per expert and pad slots over
+    the epoch (a list a layer, E + 1 counts), read with the losses."""
     print("Epoch[{0} / {1}] LR: {2}".format(epoch, cfg.num_epochs,
                                              current_lr(opt)))
+    tower = model.text_tower()
+    if tower is not None:
+        tower.reset_routing()
     losses = []
     n_items = 0
     t0 = time.time()
@@ -220,14 +225,20 @@ def train_epoch(model, opt, cfg: Config, state: TrainState, loader,
         losses.append(metrics["loss"])
         n_items += (superbatch["frames"].shape[0]
                     * superbatch["frames"].shape[1] * collectives.data_size())
+    routing = None
     with profiling.span("train.loss_read"):
         losses = [float(x) for x in losses]
+        if tower is not None:
+            routing = tower.routing_counts().cpu().tolist()
     dt = time.time() - t0
     if losses:
         print("epoch %d: mean loss %.4f  (%d updates, %.1f posts/s)"
               % (epoch, float(np.mean(losses)), len(losses),
                  n_items / max(dt, 1e-9)))
-    return state, {"losses": losses, "seconds": dt, "posts": n_items}
+    stats = {"losses": losses, "seconds": dt, "posts": n_items}
+    if routing is not None:
+        stats["routing"] = routing
+    return state, stats
 
 
 class MetricsLog:

@@ -157,3 +157,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         aspect_dropout_bwd_cuda(torch.zeros(2, 3), torch.zeros(3, 4),
                                 torch.zeros(2, 4), (0, 0), 0.5)
+    from fancyrec_tpu_torch.ops.moe import (
+        NT_STORE, moe_rows_cuda, moe_wgrad_cuda)
+    off = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_rows_cuda(torch.zeros(4, 8), torch.zeros(2, 4, 8), off, NT_STORE)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_wgrad_cuda(torch.zeros(4, 8), torch.zeros(4, 8), off,
+                       torch.zeros(2, 8, 8))

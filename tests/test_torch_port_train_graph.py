@@ -10,7 +10,8 @@ On a card (marker `chip`; `python -m pytest --noconftest
 tests/test_torch_port_train_graph.py` there, since this suite's conftest
 imports JAX): six updates through the graph against six issued eagerly,
 from the same weights, seeds and batches, across two super-batch
-signatures, a fresh queue and an lr decay.
+signatures, a fresh queue and an lr decay, for each text tower (the
+DeepSeek-V2 one's routed experts on K5, their routing on the device).
 
 No JAX import here: the card has none.
 """
@@ -302,7 +303,8 @@ def _rel(x, y):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("text_net", ["transformers", "bi-gru"])
+@pytest.mark.parametrize("text_net", ["transformers", "bi-gru",
+                                      "deepseek_v2"])
 def test_graphed_updates_match_eager_ones(card, text_net):
     m_g, o_g, s_g, loss_g, launches_g = _train(text_net, True, card)
     m_e, o_e, s_e, loss_e, launches_e = _train(text_net, False, card)
@@ -311,6 +313,14 @@ def test_graphed_updates_match_eager_ones(card, text_net):
     # the wrappers count a replay's kernels, and not a capture's
     assert launches_g == launches_e and launches_e["aspect_dropout_fwd"] \
         == len(SHAPES) * 3
+    if text_net == "deepseek_v2":
+        # K5: 4 row launches and 2 weight-gradient launches a MoE layer a
+        # microbatch; the routing counters the graph added to in place
+        n = len(SHAPES) * 3 * len(m_g.text_tower().moe_layers())
+        assert (launches_e["moe_rows"], launches_e["moe_wgrad"]) \
+            == (4 * n, 2 * n)
+        assert torch.equal(m_g.text_tower().routing_counts(),
+                           m_e.text_tower().routing_counts())
     gaps = {}
     for (n, a), (_, b) in zip(m_g.state_dict().items(),
                               m_e.state_dict().items()):
