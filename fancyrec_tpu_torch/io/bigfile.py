@@ -18,6 +18,7 @@ host has no C++ compiler, through a numpy memmap's fancy indexing.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -176,11 +177,39 @@ class BigFileWriter:
         return True
 
     def write_batch(self, names: Sequence[str], matrix) -> int:
+        """`write` of each (name, row) pair, as `zip` pairs them, with the
+        same bytes, return value (the rows written) and `failed` count: a
+        name already written, earlier or in this batch, is skipped, a NaN
+        row fails and leaves its name free. The kept rows go out in one
+        contiguous write."""
         matrix = np.asarray(matrix, dtype=np.float32)
-        written = 0
-        for name, row in zip(names, matrix):
-            written += int(self.write(name, row))
-        return written
+        names = list(names)[: len(matrix)]
+        n = len(names)
+        if n == 0:
+            return 0
+        rows = matrix[:n].reshape(n, math.prod(matrix.shape[1:]))
+        nan = np.isnan(rows).any(axis=1)
+        keep: List[int] = []
+        for i, name in enumerate(names):
+            if name in self._seen:
+                continue
+            if nan[i]:
+                self.failed += 1
+                continue
+            if not keep:                    # every row is as wide
+                if self.ndims == 0:
+                    self.ndims = rows.shape[1]
+                elif rows.shape[1] != self.ndims:
+                    raise ValueError(
+                        "dimensionality mismatch: required %d, input %d, "
+                        "id=%s" % (self.ndims, rows.shape[1], name))
+            self._seen.add(name)
+            keep.append(i)
+        if keep:
+            block = rows if len(keep) == n else rows[keep]
+            np.ascontiguousarray(block).tofile(self._fh)
+            self.names.extend(names[i] for i in keep)
+        return len(keep)
 
     def close(self) -> None:
         if self._closed:

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from fancyrec_tpu.io import bigfile as jbigfile
 from fancyrec_tpu.io import format_check as jformat_check
 from fancyrec_tpu.io import vocab as jvocab
 from fancyrec_tpu.models import resnet as jresnet
@@ -178,6 +179,55 @@ def test_extract_features_on_the_cpu_writes_the_extractors_rows(tmp_path):
     want = torch.cat([extract(imgs[:4]), extract(np.concatenate(
         [imgs[4:], np.zeros((1, 32, 32, 3), np.uint8)]))[:3]])
     np.testing.assert_array_equal(store.read_rows(range(7)), want.numpy())
+
+
+def _write_rows(w, batches):
+    """Each (names, matrix) through `w.write_batch`, then the writer
+    closed. Returns each call's return value or exception, and `failed`."""
+    got = []
+    for names, matrix in batches:
+        try:
+            got.append(w.write_batch(names, matrix))
+        except ValueError as e:
+            got.append(repr(e))
+    w.close()
+    return got, w.failed
+
+
+def _rows(k, d=4, seed=0, nan=()):
+    m = np.random.RandomState(seed).randn(k, d).astype(np.float32)
+    for i in nan:
+        m[i, i % d] = np.nan
+    return m
+
+
+@pytest.mark.parametrize("batches", [
+    [(["a", "b", "a", "c", "b"], _rows(5))],
+    [(["a", "b"], _rows(2)), (["b", "c", "a", "d"], _rows(4, seed=1))],
+    # a NaN row fails and leaves its name free; a NaN duplicate of a
+    # written name is only skipped
+    [(["a", "b", "a", "c", "b", "b"], _rows(6, nan=(0, 1, 4))),
+     (["b", "e", "e"], _rows(3, seed=2, nan=(1, 2)))],
+    # a width that differs from the store's raises at the first row that
+    # would be written, after the NaN rows before it count as failed
+    [(["a", "b"], _rows(2)), (["c", "a", "d"], _rows(3, d=5, nan=(0,))),
+     (["e"], _rows(1, seed=3))],
+    [([], _rows(0)), ([], np.zeros((0,), np.float32)),
+     (["a", "b"], _rows(2)), ([], _rows(0, d=7))],
+    # float64 in, names longer than the matrix, all-NaN batch first
+    [(["x", "y"], _rows(2, nan=(0, 1))),
+     (["p", "q", "r"], np.random.RandomState(5).randn(2, 4))],
+], ids=["dups_within", "dups_across", "nan_rows", "ndims_mismatch",
+        "empty", "float64_short"])
+def test_write_batch_is_the_per_row_write(tmp_path, batches):
+    """The port's one-append `write_batch` against the JAX package's, which
+    calls `write` row by row: the same return values, exceptions, `failed`
+    count and files."""
+    want = _write_rows(jbigfile.BigFileWriter(str(tmp_path / "jax")),
+                       batches)
+    got = _write_rows(BigFileWriter(str(tmp_path / "port")), batches)
+    assert got == want
+    assert _files(tmp_path / "port") == _files(tmp_path / "jax")
 
 
 @pytest.mark.parametrize("feat_dim", [3, 0])
